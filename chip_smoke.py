@@ -6,19 +6,30 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the bucket-extraction kernel from ``csrc/extract.cu`` (first use),
-holds it bit-exact against its plain PyTorch version on the card, drives the
-main path -- ``sort_pairs_limbs(..., engine="sample")`` on uniform (u64, u64)
-rows at 31.25M and 250M rows (0.5 and 4.0 GB, the first and last points of
-the reference's sweep) -- and the public API, checking every result
-bit-exact against a stable ``torch.sort`` oracle, and that the main path
-went through the kernel. Then it times the kernel against its plain version
-at the shapes the main path gave it.
+It builds both hand-written kernels from ``csrc/`` (one nvcc each, started
+together) and drives the port's two paths:
 
-Every check raises on failure (non-zero exit, no result line). Without a
-CUDA device it exits non-zero at once. The last line of standard output is
-one JSON object: ``{"ok": true, "device": {...}}``; the line before it is the
-per-kernel JSON record.
+  * the sort: the bucket-extraction kernel (K1, ``csrc/extract.cu``) held
+    bit-exact against its plain PyTorch version (phase 1); the main path --
+    ``sort_pairs_limbs(..., engine="sample")`` on uniform (u64, u64) rows
+    at 31.25M and 250M rows (0.5 and 4.0 GB, the first and last points of
+    the reference's sweep) -- and the public sort API, bit-exact against a
+    stable ``torch.sort`` oracle (phase 2); K1 timed at the shapes the main
+    path gave it (phase 3);
+  * the join: the run-expansion kernel (K2, ``csrc/expand.cu``) held
+    bit-exact against its plain version on run-length specs (phase 4);
+    ``rst.hash_join`` and ``rst.repeat`` at TPC-H scale factor 10 (ORDERS x
+    LINEITEM inner join, CUSTOMER left join ORDERS, a 64x UNNEST), each
+    bit-exact against an oracle built from stable ``torch.sort``,
+    ``torch.searchsorted`` and ``torch.repeat_interleave`` (phase 5); K2
+    timed at the shapes the join path gave it (phase 6).
+
+Each path runs with its kernel's launch count set to 0 just before and
+read just after, and the run fails unless the path went through the
+kernel. Every check raises on failure (non-zero exit, no result line).
+Without a CUDA device it exits non-zero at once. The last line of standard
+output is one JSON object: ``{"ok": true, "device": {...}}``; the line
+before it is the per-kernel JSON record.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import torch
 
 import radix_sort_tpu_torch as rst
 from radix_sort_tpu_torch import _build, keys
-from radix_sort_tpu_torch.ops import extract, pallas_sort, sample_sort
+from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, sample_sort
 from radix_sort_tpu_torch.utils import distributions as dist
 from radix_sort_tpu_torch.utils import timing
 
@@ -42,6 +53,16 @@ SEED = 0
 MAIN_ROWS = (31_250_000, 250_000_000)  # 0.5 GB and 4.0 GB of (u64, u64) rows
 KERNEL_CHUNK = 4096  # the main path's chunk length at 31.25M rows
 DEV = "cuda"
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM data sheet: 3.35 TB/s
+
+# TPC-H scale factor 10 (specification v3, 4.2.3 and 4.2.5): ORDERS has
+# 1.5M x SF rows, CUSTOMER 150k x SF, LINEITEM 1-7 rows per order.
+SF10_ORDERS = 15_000_000
+SF10_CUSTOMERS = 1_500_000
+J1_CAPACITY = 1 << 26  # ~60M LINEITEM rows
+J2_CAPACITY = 1 << 24  # 15M orders + 0.5M customers without one
+R_VALUES = 1_000_000
+R_CAPACITY = 1 << 26  # counts uniform in [0, 128]: ~64M rows
 
 
 def log(*args):
@@ -298,7 +319,7 @@ def kernel_at_main_shapes(gen):
     finally:
         extract.bucket_extract = real
     del khi, klo, vhi, vlo
-    total_k = total_p = 0.0
+    total_k = total_p = total_b = 0.0
     pairs = []
     for ops, bounds, kw in calls:
         got, gc = real(ops, bounds, **kw)
@@ -307,31 +328,371 @@ def kernel_at_main_shapes(gen):
               "kernel differs from plain at the main path's shapes")
         pairs += [(gc, rc)] + list(zip(got, ref))
         del got, ref
-
-        def k():
-            return real(ops, bounds, **kw)
-
-        def p():
-            return extract.bucket_extract_plain(ops, bounds, **kw)
-
-        tk, tp = [], []
-        for _ in range(2):  # plain, kernel, kernel, plain
-            tp += timing.cuda_time_ms(p, runs=2)
-            tk += timing.cuda_time_ms(k, runs=2)
-            tk += timing.cuda_time_ms(k, runs=2, warmup=0)
-            tp += timing.cuda_time_ms(p, runs=2, warmup=0)
-        mk, mp = median(tk), median(tp)
+        mk, mp, _ = interleaved_ms(lambda: real(ops, bounds, **kw),
+                                   lambda: extract.bucket_extract_plain(ops, bounds, **kw))
         total_k += mk
         total_p += mp
         moved = int(torch.clamp(rc, max=kw["cap_rows"] * 128).sum())
         out_words = kw["nbuckets"] * kw["K"] * kw["cap_rows"] * 128
+        # the least bytes: each moved word read once, each output word
+        # written once, the bounds read and the counts written
+        bound = (len(ops) * 4 * (moved + out_words) + 4 * bounds.numel()
+                 + 4 * rc.numel()) / HBM_BYTES_PER_MS
+        total_b += bound
         nbytes = len(ops) * (8 * moved + 4 * out_words)
         log(f"kernel K={kw['K']} nbuckets={kw['nbuckets']} cpb={kw['chunks_per_bucket']} "
             f"ops={len(ops)} words/op={ops[0].numel():,}: kernel {mk:.3f} ms "
-            f"({nbytes / mk / 1e6:.0f} GB/s of fill+read+write), plain {mp:.3f} ms")
+            f"({nbytes / mk / 1e6:.0f} GB/s of fill+read+write), plain {mp:.3f} ms, "
+            f"bound {bound:.3f} ms")
     log(f"kernel per {n:,}-row sort ({len(calls)} calls): {total_k:.3f} ms, "
-        f"plain {total_p:.3f} ms")
-    return total_k, total_p, max_abs_err(pairs)
+        f"plain {total_p:.3f} ms, bound {total_b:.3f} ms; no single PyTorch call "
+        f"computes a stable multi-region run scatter")
+    return total_k, total_p, total_b, max_abs_err(pairs)
+
+
+def interleaved_ms(kernel, plain, library=None):
+    """Median CUDA-event ms of ``kernel()``, ``plain()`` and ``library()``
+    (None if not given), timed in turns: plain, kernel, kernel, plain."""
+    tk, tp, tl = [], [], []
+    for _ in range(2):
+        tp += timing.cuda_time_ms(plain, runs=2)
+        tk += timing.cuda_time_ms(kernel, runs=2)
+        if library is not None:
+            tl += timing.cuda_time_ms(library, runs=2)
+        tk += timing.cuda_time_ms(kernel, runs=2, warmup=0)
+        tp += timing.cuda_time_ms(plain, runs=2, warmup=0)
+    return median(tk), median(tp), (median(tl) if tl else None)
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def _desc(gen, spec, n_r):
+    """Descriptors of (lo, m_copy, m_emit) runs with random key and
+    left-value words."""
+    spec = torch.tensor(spec, dtype=torch.int32).reshape(-1, 3).to(DEV)
+    words = torch.randint(-(1 << 31), 1 << 31, (spec.shape[0], 2), dtype=torch.int32,
+                          generator=gen, device=DEV)
+    pad = torch.zeros((spec.shape[0], 3), dtype=torch.int32, device=DEV)
+    desc = torch.cat([words, spec, pad], 1).contiguous()
+    check(bool(((desc[:, 2] + desc[:, 3]) <= n_r).all()), "spec reads past rvs")
+    return desc
+
+
+def _k2_specs(rng):
+    """Run-length specs: (label, [(lo, m_copy, m_emit)], capacity or None)."""
+    tiers = (1, 2, 127, 128, 129, 383, 384, 385, 895, 896, 1919, 1920)
+
+    def lo():
+        return int(rng.integers(0, 100_000))
+
+    many = rng.integers(0, 9, 300_000)
+    spec_many = [(lo(), int(m), int(m)) for m in many]
+    pre = [(lo(), 7000, 7000) for _ in range(40)]
+    cap_pre = 100_000
+    start, clamped = 0, []
+    for lo_, _, m in pre:  # the callers' clamp: cumulative output <= capacity
+        e = max(min(cap_pre - start, m), 0)
+        clamped.append((lo_, e, e))
+        start += m
+    return [
+        ("tier boundaries 1..1920", [(lo(), m, m) for m in tiers], None),
+        ("runs > 1920", [(0, 1921, 1921), (100, 4000, 4000), (7, 5000, 5000)], None),
+        ("5,000- and 100,000-row runs, copy and fill",
+         [(lo(), 5000, 5000), (lo(), 100_000, 100_000), (0, 0, 100_000), (3, 0, 5000)], None),
+        ("fill (0, 1) and zero-emit runs",
+         [(0, 5, 5), (0, 0, 1), (50, 0, 0), (9, 130, 130), (0, 0, 1)] * 2000, None),
+        ("300,000 runs, many tiles", spec_many, None),
+        ("exact capacity", [(lo(), 3000, 3000) for _ in range(33)], 99_000),
+        ("pre-clamped at capacity", clamped, cap_pre),
+    ]
+
+
+def check_expand_kernel(rng, gen):
+    """K2 vs its plain version, bit-exact, whole outputs with tail and
+    count; then one launch into a guarded buffer (canary)."""
+    n_r = 1 << 20
+    rvs = torch.randint(-(1 << 31), 1 << 31, (n_r,), dtype=torch.int32, generator=gen,
+                        device=DEV)
+    pairs = []
+    for label, spec, capacity in _k2_specs(rng):
+        desc = _desc(gen, spec, n_r)
+        total = sum(m for _, _, m in spec)
+        if capacity is None:
+            capacity = total + 1234
+        check(total <= capacity, label)
+        got = expand.expand_join_runs(rvs, desc, capacity=capacity)
+        ref = expand.expand_join_runs_plain(rvs, desc, capacity=capacity)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            check(g.dtype == r.dtype and torch.equal(g, r), f"K2 vs plain: {label}")
+        check(int(got[3]) == total, f"K2 count: {label}")
+        pairs += list(zip(got, ref))
+        log(f"K2 vs plain, {label}: bit-exact ({len(spec):,} runs, {total:,} rows, "
+            f"capacity {capacity:,})")
+
+    # canary: the launch writes its outputs and count and nothing around them
+    spec = [(int(rng.integers(0, 1000)), int(m), int(m)) for m in rng.integers(0, 50, 5000)]
+    desc = _desc(gen, spec, n_r)
+    capacity, guard = sum(m for _, _, m in spec) + 77, 4096
+    canary = torch.randint(-(1 << 31), 1 << 31, (4, capacity + 2 * guard), dtype=torch.int32,
+                           generator=gen, device=DEV)
+    buf = canary.clone()
+    outs = [buf[w, guard:guard + capacity] for w in range(3)]
+    count = buf[3, guard:guard + 1]
+    expand.launch(rvs, desc, outs, count, capacity=capacity)
+    ref = expand.expand_join_runs_plain(rvs, desc, capacity=capacity)
+    torch.cuda.synchronize()
+    for o, r in zip(outs + [count[0]], ref):
+        check(torch.equal(o, r), "K2 launch into a guarded buffer")
+    check(torch.equal(buf[:, :guard], canary[:, :guard])
+          and torch.equal(buf[:3, guard + capacity:], canary[:3, guard + capacity:])
+          and torch.equal(buf[3, guard + 1:], canary[3, guard + 1:]), "K2 canary")
+    log("K2 launch into a guarded buffer: outputs bit-exact, canary intact")
+    return max_abs_err(pairs)
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def _bits(t):
+    """The same-width signed-integer view (floats compare by their bits)."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def tpch_sf10(gen):
+    """ORDERS, LINEITEM and CUSTOMER columns of TPC-H (specification v3,
+    4.2.3) at scale factor 10, made on the card from ``gen``; rows in
+    random order, so neither join side arrives sorted."""
+    n_orders, n_customers = SF10_ORDERS, SF10_CUSTOMERS
+    i = torch.arange(n_orders, dtype=torch.int64, device=DEV)
+    orderkey = (i // 8) * 32 + i % 8 + 1  # sparse keys: 8 of every 32 used
+    # O_CUSTKEY: uniform over the customers whose key is not a multiple of 3
+    u = torch.randint(0, n_customers * 2 // 3, (n_orders,), generator=gen, device=DEV)
+    custkey = 3 * (u // 2) + 1 + u % 2
+    totalprice = torch.randint(85_771, 55_528_517, (n_orders,), generator=gen,
+                               device=DEV).to(torch.float64) / 100
+    per_order = torch.randint(1, 8, (n_orders,), generator=gen, device=DEV)
+    l_orderkey = torch.repeat_interleave(orderkey, per_order)
+    n_li = l_orderkey.shape[0]
+    quantity = torch.randint(1, 51, (n_li,), generator=gen, device=DEV)
+    retail = (90_000 + torch.randint(0, 110_001, (n_li,), generator=gen, device=DEV)) / 100
+    extendedprice = (quantity * retail).to(torch.float32)
+    o_perm = torch.randperm(n_orders, generator=gen, device=DEV)
+    l_perm = torch.randperm(n_li, generator=gen, device=DEV)
+    c_perm = torch.randperm(n_customers, generator=gen, device=DEV)
+    return {
+        "o_orderkey": orderkey[o_perm].to(torch.int32).view(torch.uint32),
+        "o_custkey": custkey[o_perm],
+        "o_custkey32": custkey[o_perm].to(torch.int32),
+        "o_totalprice": totalprice[o_perm],
+        "l_orderkey": l_orderkey[l_perm].to(torch.int32).view(torch.uint32),
+        "l_extendedprice": extendedprice[l_perm],
+        "c_custkey": c_perm + 1,
+        "c_acctbal": torch.randint(-99_999, 1_000_000, (n_customers,), generator=gen,
+                                   device=DEV),
+    }
+
+
+def _rank(keys):
+    """int64 keys of the same order (uint32 zero-extended)."""
+    if keys.dtype == torch.uint32:
+        return keys.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return keys.to(torch.int64)
+
+
+def oracle_join(lk, lv, rk, rv, capacity, left):
+    """Inner or left join from stable torch.sort, torch.searchsorted and
+    torch.repeat_interleave: rows by left row, then right sorted position;
+    padded to ``capacity`` with zero values and, for the keys, the lowest
+    key of the (integer) dtype, as the JAX package pads them. Returns
+    (keys, lv, rv, count, overflow) as bit views."""
+    lr, rr = _rank(lk), _rank(rk)
+    order = torch.sort(rr, stable=True).indices
+    rs, rv_s = rr[order], _bits(rv)[order]
+    lo = torch.searchsorted(rs, lr, side="left")
+    m = torch.searchsorted(rs, lr, side="right") - lo
+    emit = m.clamp(min=1) if left else m
+    total = int(emit.sum())
+    n = min(total, capacity)
+    li = torch.repeat_interleave(torch.arange(lk.shape[0], device=DEV), emit)[:n]
+    j = torch.arange(n, device=DEV) - (torch.cumsum(emit, 0) - emit)[li]
+    out_rv = rv_s[(lo[li] + j).clamp(max=rk.shape[0] - 1)]
+    if left:
+        out_rv = torch.where(m[li] > 0, out_rv, 0)
+
+    def pad(x, fill=0):
+        return torch.cat([x, torch.full((capacity - n,), fill, dtype=x.dtype, device=DEV)])
+
+    key_fill = torch.iinfo(lk.dtype).min if lk.dtype.is_signed else 0
+    return (pad(_bits(lk)[li], key_fill), pad(_bits(lv)[li]), pad(out_rv), n,
+            total > capacity)
+
+
+def oracle_repeat(values, counts, capacity):
+    out = torch.repeat_interleave(_bits(values), counts.clamp(min=0))
+    total = out.shape[0]
+    out = out[:capacity]
+    return torch.cat([out, out.new_zeros((capacity - out.shape[0],))]), min(total, capacity), \
+        total > capacity
+
+
+def _check_result(got, want, label):
+    *g_cols, g_count, g_over = got
+    *w_cols, w_count, w_over = want
+    for g, w in zip(g_cols, w_cols):
+        check(g.device == w.device and torch.equal(_bits(g), w), f"{label}: columns")
+    check(g_count.dtype == torch.int32 and int(g_count) == w_count, f"{label}: count")
+    check(bool(g_over) == w_over, f"{label}: overflow")
+
+
+def join_path(gen):
+    """The join path at TPC-H SF10 through the public API, bit-exact against
+    the torch oracle, with K2's launches per call checked. Returns the
+    workloads (label -> zero-argument call) for timing."""
+    t = tpch_sf10(gen)
+    log(f"TPC-H SF10 on the card: {t['o_orderkey'].shape[0]:,} orders, "
+        f"{t['l_orderkey'].shape[0]:,} lineitems, {t['c_custkey'].shape[0]:,} customers")
+    r_values = torch.randint(-(1 << 31), 1 << 31, (R_VALUES,), dtype=torch.int32,
+                             generator=gen, device=DEV)
+    r_counts = torch.randint(0, 129, (R_VALUES,), dtype=torch.int32, generator=gen, device=DEV)
+    work = {
+        # label: (call, oracle, K2 calls in the schedule, rows in)
+        "J1 ORDERS inner join LINEITEM on orderkey (u32 key, i32 o_custkey, "
+        "f32 l_extendedprice)": (
+            lambda: rst.hash_join(t["o_orderkey"], t["o_custkey32"], t["l_orderkey"],
+                                  t["l_extendedprice"], capacity=J1_CAPACITY, how="inner"),
+            lambda: oracle_join(t["o_orderkey"], t["o_custkey32"], t["l_orderkey"],
+                                t["l_extendedprice"], J1_CAPACITY, left=False),
+            1, t["o_orderkey"].shape[0] + t["l_orderkey"].shape[0]),
+        "J2 CUSTOMER left join ORDERS on custkey (i64 key, i64 c_acctbal, "
+        "f64 o_totalprice)": (
+            lambda: rst.hash_join(t["c_custkey"], t["c_acctbal"], t["o_custkey"],
+                                  t["o_totalprice"], capacity=J2_CAPACITY, how="left"),
+            lambda: oracle_join(t["c_custkey"], t["c_acctbal"], t["o_custkey"],
+                                t["o_totalprice"], J2_CAPACITY, left=True),
+            2, t["c_custkey"].shape[0] + t["o_custkey"].shape[0]),
+        "R repeat of 1M i32 values, counts uniform in [0, 128]": (
+            lambda: rst.repeat(r_values, r_counts, total_size=R_CAPACITY),
+            lambda: oracle_repeat(r_values, r_counts, R_CAPACITY),
+            1, R_VALUES),
+    }
+    for label, (call, oracle, n_calls, _) in work.items():
+        before = expand.LAUNCHES
+        got = call()
+        torch.cuda.synchronize()
+        calls = expand.LAUNCHES - before
+        check(calls == n_calls, f"{label}: {calls} K2 calls, the schedule makes {n_calls}")
+        want = oracle()
+        _check_result(got, want, label)
+        log(f"{label}: bit-exact vs the torch oracle, {want[-2]:,} rows, overflow "
+            f"{want[-1]}, K2 calls {calls}")
+        del got, want
+    return work
+
+
+def time_join_path(work):
+    """Warm wall time, rows/s and peak memory of each workload; its device
+    time by kernel, and K2's share of it, from torch.profiler."""
+    out = {}
+    for label, (call, _, _, rows_in) in work.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        n_out = int(res[-2])
+        del res
+        ts = timing.cuda_time_ms(call, runs=5)
+        ms = median(ts)
+        out[label] = ms
+        log(f"{label}: median {ms:.3f} ms of {[round(x, 3) for x in ts]}; "
+            f"{rows_in / ms / 1e3:.1f} M input rows/s, {n_out / ms / 1e3:.1f} M output rows/s; "
+            f"peak allocated {peak / 2**30:.2f} GiB above the inputs")
+    for label, (call, _, _, _) in work.items():
+        call()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = []
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            kernels.append((us, e.key))
+        busy = sum(us for us, _ in kernels)
+        k2 = sum(us for us, k in kernels if "expand_runs" in k or "tile_first_run" in k)
+        name = label.split()[0]
+        if busy > 0:
+            log(f"{name} profile: device busy {busy / 1e3:.3f} ms (wall {out[label]:.3f} ms), "
+                f"K2 {k2 / 1e3:.3f} ms = {100 * k2 / busy:.1f}% of device time")
+            for us, key in sorted(kernels, reverse=True)[:6]:
+                log(f"  {us / 1e3:9.3f} ms  {key[:110]}")
+        else:
+            log(f"{name} profile: the profiler showed no device time; K2 share not measured")
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def expand_at_join_shapes(work):
+    """Time K2 against its plain version (and, for the UNNEST fill, against
+    torch.repeat_interleave) on the exact arguments J1 and R gave it."""
+    recorded = {}
+    real = expand.expand_join_runs
+    for label, (call, _, _, _) in work.items():
+        if not label.startswith(("J1", "R ")):
+            continue
+        calls = []
+
+        def recorder(rvs, desc, *, capacity, calls=calls):
+            calls.append((rvs, desc, capacity))
+            return real(rvs, desc, capacity=capacity)
+
+        expand.expand_join_runs = recorder
+        try:
+            call()
+        finally:
+            expand.expand_join_runs = real
+        recorded[label.split()[0]] = calls
+    rows, pairs = [], []
+    for shape, calls in recorded.items():
+        for rvs, desc, capacity in calls:
+            got = real(rvs, desc, capacity=capacity)
+            ref = expand.expand_join_runs_plain(rvs, desc, capacity=capacity)
+            check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                  f"K2 differs from plain at the {shape} shapes")
+            pairs += list(zip(got, ref))
+            del got, ref
+            emits = desc[:, 4]
+            total = int(emits.sum())
+            copied = int(desc[:, 3].sum())
+            library = None
+            if copied == 0:  # all fill runs: one PyTorch call computes the key words
+                def library(desc=desc, emits=emits, total=total):
+                    return torch.repeat_interleave(desc[:, 0], emits, output_size=total)
+            mk, mp, ml = interleaved_ms(lambda: real(rvs, desc, capacity=capacity),
+                                        lambda: expand.expand_join_runs_plain(
+                                            rvs, desc, capacity=capacity), library)
+            # the least bytes: 3 output words per slot written once, each
+            # copied right value and each descriptor row read once
+            nbytes = 12 * capacity + 4 * copied + 4 * desc.numel() + 4
+            bound = nbytes / HBM_BYTES_PER_MS
+            rows.append({"shape": shape, "runs": desc.shape[0], "rows": total,
+                         "capacity": capacity, "ms": mk, "plain_ms": mp,
+                         "bound_ms": bound, "library_ms": ml})
+            lib = f", torch.repeat_interleave {ml:.3f} ms" if ml is not None else ""
+            log(f"K2 at {shape}: {desc.shape[0]:,} runs -> {total:,} rows in {capacity:,} "
+                f"slots: kernel {mk:.3f} ms ({nbytes / mk / 1e6:.0f} GB/s), plain {mp:.3f} ms, "
+                f"bound {bound:.3f} ms{lib}")
+    return rows, max_abs_err(pairs)
 
 
 def main():
@@ -341,12 +702,15 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    _build.build(["extract", "expand"])  # one nvcc per source, all started together
     extract._kernel()
-    log(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.BUILD_SECONDS.get('extract', 0.0):.2f} s)")
-    for line in _build.LOG.get("extract", "").splitlines():
-        if "Used" in line:
-            log("  ptxas:", line.strip())
+    expand._kernel()
+    log(f"kernel builds + load: {time.perf_counter() - t0:.2f} s (nvcc "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in _build.BUILD_SECONDS.items()) + ")")
+    for name in ("extract", "expand"):
+        for line in _build.LOG.get(name, "").splitlines():
+            if "Used" in line:
+                log(f"  ptxas {name}:", line.strip())
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -354,20 +718,51 @@ def main():
 
     extract.LAUNCHES = 0
     main_path(gen)
-    launches = extract.LAUNCHES
-    check(launches > 0, "the main path never launched the extract kernel")
-    log(f"main path: extract kernel calls {launches}")
+    k1_launches = extract.LAUNCHES
+    check(k1_launches > 0, "the sort path never launched the extract kernel")
+    log(f"sort path: extract kernel calls {k1_launches}")
 
-    ms, plain_ms, err2 = kernel_at_main_shapes(gen)
+    k1_ms, k1_plain, k1_bound, err2 = kernel_at_main_shapes(gen)
+
+    k2_err = check_expand_kernel(rng, gen)
+
+    expand.LAUNCHES = 0
+    work = join_path(gen)
+    k2_launches = expand.LAUNCHES
+    check(k2_launches > 0, "the join path never launched the expand kernel")
+    log(f"join path: expand kernel calls {k2_launches}")
+
+    time_join_path(work)
+    k2_rows, k2_err2 = expand_at_join_shapes(work)
+    r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/extract.cu",
         "replaces": "radix_sort_tpu/ops/extract.py:310",
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": max(err, err2),
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": k1_ms,
+        "plain_ms": k1_plain,
+        "bound_ms": k1_bound,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes a stable multi-region run scatter
+        "shape": f"the calls of one {MAIN_ROWS[0]:,}-row (u64,u64) sort, summed",
+    }, {
+        "name": "expand_join_runs",
+        "route": "cuda",
+        "source": "radix_sort_tpu_torch/csrc/expand.cu",
+        "replaces": "radix_sort_tpu/ops/expand.py:330",
+        "launches": k2_launches,
+        "max_abs_err": max(k2_err, k2_err2),
+        "ms": r_row["ms"],
+        "plain_ms": r_row["plain_ms"],
+        "bound_ms": r_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": r_row["library_ms"],
+        "shape": "R: the repeat call (torch.repeat_interleave computes its fill); "
+                 "every shape in calls",
+        "calls": k2_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

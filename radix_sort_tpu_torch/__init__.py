@@ -2,13 +2,24 @@
 
 The counterpart of ``radix_sort_tpu`` (the JAX package, which stays the
 reference) for one NVIDIA H100. It mirrors that package's module names.
-This slice ports the sort: key transforms, the public sort API, and the
-sample-sort engine whose data movement is a CUDA kernel written for Hopper
-(``csrc/extract.cu``), built at first use. Query operators, tables, SQL and
-the multi-device layer are not ported yet (ROADMAP.md).
+It ports the sort (key transforms, the public sort API, and the
+sample-sort engine whose data movement is a CUDA kernel written for Hopper,
+``csrc/extract.cu``) and the join slice of the query operators (``filter``,
+``searchsorted``, ``unique``, ``hash_join``, ``repeat``, whose expansion is
+a second such kernel, ``csrc/expand.cu``); the kernels are built at first
+use. Aggregation, band joins, tables, SQL and the multi-device layer are
+not ported yet (ROADMAP.md).
 """
 
 from radix_sort_tpu_torch import config, keys
+from radix_sort_tpu_torch.ops.query import (
+    JOIN_HOWS,
+    filter,
+    hash_join,
+    repeat,
+    searchsorted,
+    unique,
+)
 from radix_sort_tpu_torch.ops.sort import (
     IMPLEMENTATIONS,
     argsort,
@@ -29,5 +40,11 @@ __all__ = [
     "sort_limbs",
     "counting_sort",
     "IMPLEMENTATIONS",
+    "filter",
+    "hash_join",
+    "repeat",
+    "searchsorted",
+    "unique",
+    "JOIN_HOWS",
     "__version__",
 ]

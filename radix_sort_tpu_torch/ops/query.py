@@ -1,0 +1,637 @@
+"""Vectorized query operators: filter, searchsorted, unique, hash_join, repeat.
+
+Counterpart of ``radix_sort_tpu/ops/query.py`` (the join slice; the
+aggregation family and band joins are not ported yet, ROADMAP.md). The
+names are the JAX package's, so each function's counterpart is found by
+name. Outputs are bit-identical to the reference's:
+
+  - ``filter``: predicate compaction as a stable 1-bit partition; kept rows
+    keep their order, the result is the valid prefix plus a count.
+  - ``hash_join``: equi-join via sort + merge rank (sort-merge join): the
+    build side is sorted once, probes rank their key range, and matches
+    expand into a static-capacity output (+ overflow flag) through kernel
+    K2 (``ops/expand.py``).
+  - ``repeat``: ``np.repeat`` into a static-size output (UNNEST), on K2.
+
+All outputs are (padded tensors..., count[, overflow]), with count and
+overflow as 0-dim tensors on the input's device: slicing the first
+``count`` rows gives the exact ragged result.
+
+Key words are the port's signed int32 rank limbs (``keys.encode_limbs``),
+the reference's unsigned limbs with the sign bit flipped: where the
+reference zeroes a key limb, the port writes :data:`ZERO_LIMB`, so decoded
+key columns match bit for bit. Running sums are taken in int64; the count
+and overflow flag come out as the reference's int32 sums with their
+wraparound guard give them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from radix_sort_tpu_torch import keys as K
+from radix_sort_tpu_torch.ops import expand
+from radix_sort_tpu_torch.ops._cosort import cosort
+from radix_sort_tpu_torch.ops.expand import expand_offsets
+
+__all__ = [
+    "append_unmatched_right",
+    "expand_offsets",
+    "filter",
+    "hash_join",
+    "join_expand",
+    "merge_rank",
+    "merge_rank_pair",
+    "repeat",
+    "searchsorted",
+    "unique",
+    "JOIN_HOWS",
+]
+
+JOIN_HOWS = ("inner", "left", "right", "full", "semi", "anti")
+
+ZERO_LIMB = -(1 << 31)  # the port's image of the reference's zero limb
+_INT32_MAX = (1 << 31) - 1
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+_SIGNED_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _signed(a):
+    """``a`` itself, or for uint16/32/64 its signed view of the same width
+    (PyTorch's CPU gather, scatter and index_put have no unsigned kernels)."""
+    sdt = _SIGNED_VIEW.get(a.dtype)
+    return a if sdt is None else a.view(sdt)
+
+
+def _i32(x, device):
+    return torch.tensor(x, dtype=torch.int32, device=device)
+
+
+def _mask(valid, a, fill=0):
+    """``where(valid, a, fill)`` in ``a``'s own dtype (an int scalar would
+    promote a bool tensor)."""
+    return torch.where(valid, a, bool(fill) if a.dtype == torch.bool else fill)
+
+
+def _stable_sort(operands, num_keys):
+    """``lax.sort(operands, num_keys, is_stable=True)``: the keys are signed
+    rank words; unsigned payloads ride as their signed views."""
+    out = cosort([_signed(o) for o in operands], num_keys)
+    return [o.view(src.dtype) for o, src in zip(out, operands)]
+
+
+def _as_limb_list(arr_or_limbs):
+    """Canonicalize a key operand: a single word tensor or a list of
+    big-endian limb tensors -> list of limb tensors."""
+    if isinstance(arr_or_limbs, (list, tuple)):
+        return list(arr_or_limbs)
+    return [arr_or_limbs]
+
+
+def _cols_to_limbs(cols):
+    """Encode key columns -> (flat int32 limb list, per-column specs)."""
+    limbs, specs = [], []
+    for c in cols:
+        cl = K.encode_limbs(c)
+        limbs.extend(cl)
+        specs.append((c.dtype, len(cl)))
+    return limbs, specs
+
+
+def _limbs_to_cols(limbs, specs):
+    """Inverse of :func:`_cols_to_limbs`."""
+    out, i = [], 0
+    for dt, nl in specs:
+        out.append(K.decode_limbs(limbs[i:i + nl], dt))
+        i += nl
+    return out
+
+
+def _limbs_differ(limbs_a, limbs_b):
+    """Row-wise 'any limb differs' between two equal-shape limb lists."""
+    d = limbs_a[0] != limbs_b[0]
+    for a, b in zip(limbs_a[1:], limbs_b[1:]):
+        d = d | (a != b)
+    return d
+
+
+def _exclusive_cumsum(x):
+    """Exclusive prefix sum (same dtype as ``x``; int32 input sums exactly
+    below 2**31 rows)."""
+    return torch.cumsum(x, 0, dtype=x.dtype) - x
+
+
+def merge_rank(sorted_arr, queries, side="left"):
+    """``searchsorted(sorted_arr, queries, side)`` by two stable sorts: sort
+    the union by (key, origin tag) -- ties put queries before data for
+    side="left" and after for side="right" -- so each query's insertion
+    index is its union position minus its rank among queries; a second
+    sort restores query order. Few queries against much data take a direct
+    binary search (:func:`_few_queries`); both give identical indices.
+
+    Both key operands may be lists of big-endian int32 limb tensors
+    (composite keys). Returns int32.
+    """
+    d_limbs = _as_limb_list(sorted_arr)
+    q_limbs = _as_limb_list(queries)
+    n_d = d_limbs[0].shape[0]
+    n_q = q_limbs[0].shape[0]
+    dev = q_limbs[0].device
+    if len(d_limbs) == 1 and _few_queries(n_d, n_q):
+        return torch.searchsorted(d_limbs[0], q_limbs[0], side=side).to(torch.int32)
+    # tag and query index share one int32 operand: queries carry their
+    # index, data rows a sentinel that ties to the correct side
+    sentinel = _INT32_MAX if side == "left" else -1
+    key = [torch.cat([d, q]) for d, q in zip(d_limbs, q_limbs)]
+    packed = torch.cat([torch.full((n_d,), sentinel, dtype=torch.int32, device=dev),
+                        torch.arange(n_q, dtype=torch.int32, device=dev)])
+    p2 = _stable_sort([*key, packed], num_keys=len(key) + 1)[-1]
+    isq = (p2 != sentinel).to(torch.int32)
+    res = torch.arange(n_d + n_q, dtype=torch.int32, device=dev) - _exclusive_cumsum(isq)
+    # queries to the front in original index order
+    _, res2 = _stable_sort([torch.where(isq == 1, p2, _INT32_MAX), res], num_keys=1)
+    return res2[:n_q]
+
+
+def _few_queries(n_d, n_q):
+    """True when a direct binary search is taken instead of the merge-rank
+    sorts: the query side is at least 20x smaller than the data side. The
+    crossover is the JAX package's (measured on its accelerator); it is to
+    be re-measured on the H100 (ROADMAP.md)."""
+    return n_q > 0 and n_q * 20 <= n_d
+
+
+def merge_rank_pair(sorted_arr, queries):
+    """Both ``searchsorted`` sides at once: ``(lo, hi)`` ==
+    ``(merge_rank(..., "left"), merge_rank(..., "right"))`` with two stable
+    sorts instead of four. One union sort with queries tying before equal
+    data gives each query its left rank; the right rank adds the query's
+    equal-key data run: the data count at the run's end, spread over the
+    run (the reference fills it backwards with a reversed running min; the
+    port takes a max per run). A final sort restores query order for
+    both outputs together. Key operands may be limb lists.
+    """
+    d_limbs = _as_limb_list(sorted_arr)
+    q_limbs = _as_limb_list(queries)
+    n_d = d_limbs[0].shape[0]
+    n_q = q_limbs[0].shape[0]
+    dev = q_limbs[0].device
+    if len(d_limbs) == 1 and _few_queries(n_d, n_q):
+        return tuple(torch.searchsorted(d_limbs[0], q_limbs[0], side=s).to(torch.int32)
+                     for s in ("left", "right"))
+    n = n_d + n_q
+    key = [torch.cat([d, q]) for d, q in zip(d_limbs, q_limbs)]
+    packed = torch.cat([torch.full((n_d,), _INT32_MAX, dtype=torch.int32, device=dev),
+                        torch.arange(n_q, dtype=torch.int32, device=dev)])
+    out = _stable_sort([*key, packed], num_keys=len(key) + 1)
+    k2, p2 = out[:-1], out[-1]
+    isq = (p2 != _INT32_MAX).to(torch.int32)
+    lo_pos = torch.arange(n, dtype=torch.int32, device=dev) - _exclusive_cumsum(isq)
+    cum_data = torch.cumsum(1 - isq, 0, dtype=torch.int32)
+    # the reference's reversed running min over the run ends, as a max per
+    # equal-key run (cum_data never decreases, so a run's max is its end
+    # value): PyTorch's cummin, which also makes indices, scans a long 1-D
+    # tensor in one row and took 83% of a 75M-row union's join time on the
+    # H100 (PERF.md)
+    run_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                           _limbs_differ([w[1:] for w in k2], [w[:-1] for w in k2])])
+    run_id = torch.cumsum(run_start, 0, dtype=torch.int64) - 1
+    run_max = torch.zeros((n,), dtype=torch.int32, device=dev)
+    run_max.scatter_reduce_(0, run_id, cum_data, "amax", include_self=False)
+    hi_pos = run_max[run_id]
+    _, lo2, hi2 = _stable_sort([torch.where(isq == 1, p2, _INT32_MAX), lo_pos, hi_pos],
+                               num_keys=1)
+    return lo2[:n_q], hi2[:n_q]
+
+
+def filter(mask: torch.Tensor, *arrays: torch.Tensor):
+    """Compact rows where ``mask`` is True, preserving order.
+
+    Returns ``(*compacted, count)``: each output has the input length; rows
+    [0, count) are the kept rows in their original order, the tail is the
+    dropped rows (also in order -- the op is a stable partition).
+    """
+    if not arrays:
+        raise ValueError("filter needs at least one array")
+    n = mask.shape[0]
+    for a in arrays:
+        if a.shape[0] != n:
+            raise ValueError(f"all arrays must match mask length {n}, got {tuple(a.shape)}")
+    discard = (~mask).to(torch.int32)
+    out = _stable_sort([discard, *arrays], num_keys=1)
+    return (*out[1:], mask.sum(dtype=torch.int32))
+
+
+# ------------------------------------------------------------ expansion on K2
+
+
+def _op_to_words(a):
+    """Operand column -> list of int32 words: one for 1-, 2- and 4-byte
+    dtypes (narrow ones sign-extended from their same-width integer view),
+    two for 8-byte dtypes, the high and low halves of the bits (a plain
+    split, not ``keys.split64``'s rank limbs: a fill run's zero words must
+    read back as a zero value)."""
+    s = a.view(_SIGNED_OF_SIZE[a.element_size()])
+    if s.dtype == torch.int64:
+        return [(s >> 32).to(torch.int32), s.to(torch.int32)]  # .to keeps the low half
+    return [s.to(torch.int32)]
+
+
+def _words_to_op(words, dtype, valid):
+    """Inverse of :func:`_op_to_words`, rows outside ``valid`` zeroed."""
+    sdt = _SIGNED_OF_SIZE[dtype.itemsize]
+    if sdt == torch.int64:
+        s = (words[0].to(torch.int64) << 32) | (words[1].to(torch.int64) & 0xFFFFFFFF)
+    else:
+        s = words[0].to(sdt)
+    return _mask(valid, s).view(dtype)
+
+
+def _kernel_word_width(a):
+    """int32 words K2 moves for one operand column (every dtype rides the
+    kernel; the reference's f64 and sub-4-byte limits are its relay's)."""
+    return 2 if a.element_size() == 8 else 1
+
+
+def _expand_words(b_srcs, c_srcs, lo, m_copy, emit_c, capacity):
+    """Expand int32 word columns through K2 in the reference's call
+    schedule: each call carries two run-broadcast words (key limbs,
+    left-value words) and one run-copied word (right-value words, read
+    from ``[lo, lo + m_copy)``), so ``max(ceil(len(b_srcs)/2),
+    len(c_srcs))`` calls move the whole row. Returns (broadcast outputs,
+    copied outputs), each with the kernel's all-ones tail."""
+    n = emit_c.shape[0]
+    dev = emit_c.device
+    z = torch.zeros((n,), dtype=torch.int32, device=dev)
+    rv0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lo = z if lo is None else lo
+    out_b, out_c = [], []
+    for call in range(max((len(b_srcs) + 1) // 2, len(c_srcs))):
+        b = b_srcs[2 * call:2 * call + 2]
+        c = c_srcs[call] if call < len(c_srcs) else None
+        cols = [*b, *[z] * (2 - len(b)), lo, z if c is None else m_copy, emit_c, z, z, z]
+        desc = torch.stack(cols, dim=1)
+        ob0, ob1, oc, _ = expand.expand_join_runs(rv0 if c is None else c, desc,
+                                                  capacity=capacity)
+        out_b += [ob0, ob1][:len(b)]
+        if c is not None:
+            out_c.append(oc)
+    return out_b, out_c
+
+
+def _run_sums(emit, capacity):
+    """The prefix-sum bookkeeping of an expansion, summed in int64:
+    ``(emit_c, count, overflow)``, with ``emit_c`` the emits clamped so the
+    cumulative output stays within ``capacity`` (int32). A true total of
+    2**31 rows or more is where the reference's int32 running sum wraps and
+    its guard forces the overflow flag and a count of ``capacity``; in
+    int64 such a total is simply above the capacity, so both agree."""
+    e = emit.to(torch.int64)
+    ends = torch.cumsum(e, 0)
+    starts = ends - e
+    total = ends[-1] if e.shape[0] else torch.zeros((), dtype=torch.int64, device=e.device)
+    emit_c = torch.minimum((capacity - starts).clamp(min=0), e).to(torch.int32)
+    return emit_c, total.clamp(max=capacity).to(torch.int32), total > capacity
+
+
+def _expand_rows(cols, counts, total_size):
+    """Shared UNNEST core: emit row i of every column ``counts[i]`` times,
+    in order, into static ``total_size`` rows, through K2 (broadcast-fill
+    runs, two words per call). Returns ``(outs, count, overflow)`` with
+    :func:`repeat`'s contract."""
+    dev = counts.device
+    if counts.shape[0] == 0:
+        return ([torch.zeros((total_size,), dtype=c.dtype, device=c.device) for c in cols],
+                _i32(0, dev), torch.tensor(False, device=dev))
+    # the reference's astype(int32): wide counts wrap, then negatives clamp
+    counts = counts.to(torch.int32).clamp(min=0)
+    emit_c, count, overflow = _run_sums(counts, total_size)
+    words = [w for c in cols for w in _op_to_words(c)]
+    out_b, _ = _expand_words(words, [], None, None, emit_c, total_size)
+    valid = torch.arange(total_size, device=dev) < count
+    outs, pos = [], 0
+    for c in cols:
+        w = _kernel_word_width(c)
+        outs.append(_words_to_op(out_b[pos:pos + w], c.dtype, valid))
+        pos += w
+    return outs, count, overflow
+
+
+def repeat(values: torch.Tensor, counts: torch.Tensor, *, total_size: int):
+    """``np.repeat(values, counts)`` into a static-size output (the unnest
+    primitive): element i is emitted ``counts[i]`` times, in order.
+
+    Returns ``(out, count, overflow)``: rows [0, count) hold the expansion,
+    the tail is 0. ``overflow`` is True if the true expansion exceeds
+    ``total_size`` (the result then holds the first ``total_size`` rows,
+    exactly). Every call goes through kernel K2 (on the CPU, its plain
+    version).
+    """
+    if counts.shape[0] != values.shape[0]:
+        raise ValueError("values and counts must have the same length")
+    (out,), count, overflow = _expand_rows([values], counts, total_size)
+    return out, count, overflow
+
+
+def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner"):
+    """The match-expansion phase of the join: given each left row's
+    sorted-right match range [lo, hi), emit the join result for ``how``
+    into static-``capacity`` outputs.
+
+    Operates on encoded key limbs (``lkw``, a single limb tensor or a list
+    of big-endian limbs; the returned key words match its shape); callers
+    decode. Returns ``(key_words, left_vals, right_vals, count,
+    overflow)``. ``how="full"`` emits the left-join rows only (callers
+    append the unmatched right rows with
+    :func:`append_unmatched_right`); ``how="right"`` is a side swap
+    resolved by the callers. Inner and left joins expand through K2.
+    """
+    if how not in JOIN_HOWS or how == "right":
+        raise ValueError(
+            f"join_expand handles {tuple(h for h in JOIN_HOWS if h != 'right')},"
+            f" got {how!r} (right joins swap sides before expansion)")
+    if how == "full":
+        how = "left"
+    multi = isinstance(lkw, (list, tuple))
+    lkws = _as_limb_list(lkw)
+    multi_lv = isinstance(left_values, (list, tuple))
+    lvs = list(left_values) if multi_lv else [left_values]
+    multi_rv = isinstance(rvs, (list, tuple))
+    rvs_l = list(rvs) if multi_rv else [rvs]
+    dev = lo.device
+
+    def _pack(outs_k, outs_lv, outs_rv, count, overflow):
+        return (outs_k if multi else outs_k[0], outs_lv if multi_lv else outs_lv[0],
+                outs_rv if multi_rv else outs_rv[0], count, overflow)
+
+    matches = hi - lo
+
+    if how in ("semi", "anti"):
+        # one output row per qualifying left row, in left order: a stable
+        # filter, no expansion
+        sel = (matches > 0) if how == "semi" else (matches == 0)
+        *c_all, cnt = filter(sel, *lkws, *lvs)
+        n_l = lkws[0].shape[0]
+
+        def _fit(a):
+            if capacity >= n_l:
+                return torch.cat([a, a.new_zeros((capacity - n_l,))])
+            return a[:capacity]
+
+        valid = torch.arange(capacity, device=dev) < cnt.clamp(max=capacity)
+        return _pack([_mask(valid, _fit(k), ZERO_LIMB) for k in c_all[:len(lkws)]],
+                     [_mask(valid, _fit(v)) for v in c_all[len(lkws):]],
+                     [torch.zeros((capacity,), dtype=rv.dtype, device=dev) for rv in rvs_l],
+                     cnt.clamp(max=capacity), cnt > capacity)
+
+    # inner/left: prefix-sum output addressing. A left join emits exactly
+    # one row (with right value 0) for each unmatched left row.
+    emit = torch.where(matches == 0, 1, matches) if how == "left" else matches
+    return _pack(*_join_expand_kernel(lkws, lvs, rvs_l, lo, matches, emit, capacity))
+
+
+def _join_expand_kernel(lkws, lvs, rvs_l, lo, matches, emit, capacity):
+    """Run-append expansion through K2 (``ops/expand.py``). Emission
+    lengths are clamped so the cumulative output never exceeds
+    ``capacity``: the first ``capacity`` rows are exact even on overflow.
+    Returns ``(key_word_list, lv_list, rv_list, count, overflow)``."""
+    emit_c, count, overflow = _run_sums(emit, capacity)
+    m_copy = torch.minimum(matches, emit_c)
+    b_srcs = list(lkws) + [w for lv in lvs for w in _op_to_words(lv)]
+    c_srcs = [w for rv in rvs_l for w in _op_to_words(rv)]
+    out_b, out_c = _expand_words(b_srcs, c_srcs, lo, m_copy, emit_c, capacity)
+    valid = torch.arange(capacity, device=lo.device) < count
+
+    def _cols(words, cols):
+        outs, pos = [], 0
+        for c in cols:
+            w = _kernel_word_width(c)
+            outs.append(_words_to_op(words[pos:pos + w], c.dtype, valid))
+            pos += w
+        return outs
+
+    out_ks = [_mask(valid, w, ZERO_LIMB) for w in out_b[:len(lkws)]]
+    return (out_ks, _cols(out_b[len(lkws):], lvs), _cols(out_c, rvs_l), count, overflow)
+
+
+def append_unmatched_right(out_ks, out_lv, out_rv, count, overflow, rks, rvs, lo, hi,
+                           *, capacity):
+    """Complete a full outer join: append the unmatched sorted-right rows
+    (left value 0) after the left-join block already in ``out_*``.
+
+    A sorted-right row is matched iff it lies inside some left row's match
+    range [lo_i, hi_i): range-marked with +1/-1 at the range ends and a
+    cumsum. Unmatched rows compact stably (right sorted order) and land at
+    output slots [count, count + n_unmatched); rows past ``capacity`` are
+    dropped and flagged, so the first ``capacity`` rows stay exact.
+    ``out_ks`` / ``rks`` are parallel limb lists; ``rvs`` / ``out_rv`` may
+    be value-column lists. Returns ``(out_ks, out_lv, out_rv, count,
+    overflow)`` with the same contract.
+    """
+    multi_rv = isinstance(rvs, (list, tuple))
+    rvs_l = list(rvs) if multi_rv else [rvs]
+    orv_l = list(out_rv) if multi_rv else [out_rv]
+    n_r = rvs_l[0].shape[0]
+    dev = lo.device
+    one = (hi > lo).to(torch.int32)
+    delta = torch.zeros((n_r + 1,), dtype=torch.int32, device=dev)
+    delta.index_add_(0, lo.clamp(0, n_r).to(torch.int64), one)
+    delta.index_add_(0, hi.clamp(0, n_r).to(torch.int64), -one)
+    unmatched = ~(torch.cumsum(delta[:n_r], 0) > 0)
+    *cu, cnt_u = filter(unmatched, *rks, *rvs_l)
+    cks, crvs = cu[:len(rks)], cu[len(rks):]
+    # a slot per appended row; rows past cnt_u or capacity go to a dump
+    # slot at index capacity, cut off below (the reference's mode="drop")
+    r = torch.arange(n_r, device=dev)
+    slot = count.to(torch.int64) + r
+    slot = torch.where((r < cnt_u) & (slot < capacity), slot, capacity)
+
+    def _put(o, c):
+        buf = torch.cat([_signed(o), _signed(o).new_zeros((1,))])
+        buf[slot] = _signed(c)
+        return buf[:capacity].view(o.dtype)
+
+    out_ks = [_put(ok, ck) for ok, ck in zip(out_ks, cks)]
+    # left values of appended rows are 0: the expansion's mask zeroed them
+    orv_l = [_put(o, c) for o, c in zip(orv_l, crvs)]
+    total = count + cnt_u
+    return (out_ks, out_lv, orv_l if multi_rv else orv_l[0],
+            total.clamp(max=capacity), overflow | (total > capacity))
+
+
+def hash_join(left_keys, left_values, right_keys, right_values, *, capacity: int,
+              how: str = "inner"):
+    """Equi-join. Returns ``(keys, left_vals, right_vals, count, overflow)``:
+    rows [0, count) are the result, ordered by left row then right sorted
+    position. ``overflow`` is True if the result exceeds ``capacity`` (the
+    tensors then hold the first ``capacity`` rows).
+
+    ``how``:
+      - ``"inner"``: all (left, right) matching pairs;
+      - ``"left"``: matching pairs plus one row per unmatched left row with
+        ``right_vals`` 0;
+      - ``"right"``: the mirror, rows ordered by right row then left sorted
+        position (evaluated with the sides swapped);
+      - ``"full"``: the left-join rows followed by one row per unmatched
+        right row (``left_vals`` 0) in right sorted order;
+      - ``"semi"`` / ``"anti"``: each left row with at least one / with no
+        match, once, in left order (``right_vals`` all 0);
+      - ``"lookup"``: each matched left row once, paired with its first
+        match in right sorted order -- the inner join of a key-unique right
+        side without the expansion. With duplicate right keys it runs the
+        exact inner join instead; ``overflow`` reports only a capacity
+        excess.
+
+    Composite keys: lists of equal-length columns for both sides (matching
+    dtypes per column); the returned ``keys`` is then a list. Payloads may
+    independently be lists of columns; the matching output is then a list.
+    """
+    if how not in JOIN_HOWS and how != "lookup":
+        raise ValueError(f"how must be one of {JOIN_HOWS} or 'lookup', got {how!r}")
+    if how == "right":
+        jk, j_rv, j_lv, cnt, ovf = hash_join(right_keys, right_values, left_keys,
+                                             left_values, capacity=capacity, how="left")
+        return jk, j_lv, j_rv, cnt, ovf
+    multi = isinstance(left_keys, (list, tuple))
+    if multi != isinstance(right_keys, (list, tuple)):
+        raise ValueError("left and right keys must both be single columns "
+                         "or both be column lists")
+    l_cols = list(left_keys) if multi else [left_keys]
+    r_cols = list(right_keys) if multi else [right_keys]
+    if multi and (not l_cols or len(l_cols) != len(r_cols) or any(
+            a.dtype != b.dtype for a, b in zip(l_cols, r_cols))):
+        raise ValueError("left and right key columns must be non-empty and "
+                         "match in count and dtypes")
+    n_l = l_cols[0].shape[0]
+    n_r = r_cols[0].shape[0]
+    multi_lv = isinstance(left_values, (list, tuple))
+    lv_cols = list(left_values) if multi_lv else [left_values]
+    multi_rv = isinstance(right_values, (list, tuple))
+    rv_cols = list(right_values) if multi_rv else [right_values]
+    for cols, n, what in ((l_cols, n_l, "left key columns must have equal length"),
+                          (r_cols, n_r, "right key columns must have equal length"),
+                          (lv_cols, n_l, "left keys/values length mismatch"),
+                          (rv_cols, n_r, "right keys/values length mismatch")):
+        if any(c.shape[0] != n for c in cols):
+            raise ValueError(what)
+    dev = l_cols[0].device
+    lv_dt = [c.dtype for c in lv_cols]
+    rv_dt = [c.dtype for c in rv_cols]
+    lv_cols = [_signed(c) for c in lv_cols]
+    rv_cols = [_signed(c) for c in rv_cols]
+
+    def _result(key_cols, lvs, rvs, count, overflow):
+        lvs = [v.view(dt) for v, dt in zip(lvs, lv_dt)]
+        rvs = [v.view(dt) for v, dt in zip(rvs, rv_dt)]
+        return (key_cols if multi else key_cols[0], lvs if multi_lv else lvs[0],
+                rvs if multi_rv else rvs[0], count, overflow)
+
+    def _zeros(cols, fill=0):
+        return [torch.full((capacity,), fill, dtype=c.dtype, device=c.device) for c in cols]
+
+    if n_l == 0 or (n_r == 0 and how == "inner"):
+        if how == "full" and n_r > 0:
+            # degenerate full outer join: every right row is unmatched
+            rk_limbs, rspecs = _cols_to_limbs(r_cols)
+            out = _stable_sort([*rk_limbs, *rv_cols], num_keys=len(rk_limbs))
+            rks, rvs = out[:len(rk_limbs)], out[len(rk_limbs):]
+            e = torch.zeros((0,), dtype=torch.int32, device=dev)
+            out_ks, out_lv, out_rv, count, overflow = append_unmatched_right(
+                _zeros(rks, ZERO_LIMB), _zeros(lv_cols), _zeros(rv_cols),
+                _i32(0, dev), torch.tensor(False, device=dev), rks, rvs, e, e,
+                capacity=capacity)
+            return _result(_limbs_to_cols(out_ks, rspecs), out_lv, out_rv, count, overflow)
+        # an empty side is a normal inner-join input: zero matching pairs
+        return _result(_zeros(l_cols), _zeros(lv_cols), _zeros(rv_cols), _i32(0, dev),
+                       torch.tensor(False, device=dev))
+    lk_limbs, specs = _cols_to_limbs(l_cols)
+    if n_r == 0:
+        # left/semi/anti against an empty right side: no row matches
+        lo = hi = torch.zeros((n_l,), dtype=torch.int32, device=dev)
+        rvs = [torch.zeros((1,), dtype=c.dtype, device=dev) for c in rv_cols]
+    else:
+        rk_limbs, _ = _cols_to_limbs(r_cols)
+        out = _stable_sort([*rk_limbs, *rv_cols], num_keys=len(rk_limbs))
+        rks, rvs = out[:len(rk_limbs)], out[len(rk_limbs):]
+        lo, hi = merge_rank_pair(rks, lk_limbs)
+
+    if how == "lookup":
+        # Key-unique right side: each left row pairs with its first match,
+        # a membership filter plus a gather, no expansion. Duplicate right
+        # keys run the exact inner join instead. The reference decides on
+        # the device (lax.cond); here the host reads the flag -- the one
+        # host sync of the join.
+        if bool(((hi - lo) > 1).any()):
+            kw, olv, orv, cnt, ovf = join_expand(lk_limbs, lv_cols, rvs, lo, hi,
+                                                 capacity=capacity, how="inner")
+            return _result(_limbs_to_cols(kw, specs), olv, orv, cnt, ovf)
+        safe = lo.clamp(0, max(n_r, 1) - 1)
+        *comp, cnt = filter(hi > lo, *lk_limbs, *lv_cols, *[rv[safe] for rv in rvs])
+
+        def _fit(a):
+            if a.shape[0] >= capacity:
+                return a[:capacity]
+            return torch.cat([a, a.new_zeros((capacity - a.shape[0],))])
+
+        valid = torch.arange(capacity, device=dev) < cnt.clamp(max=capacity)
+        nk, nlv = len(lk_limbs), len(lv_cols)
+        ks = [_mask(valid, _fit(a), ZERO_LIMB) for a in comp[:nk]]
+        vals = [_mask(valid, _fit(a)) for a in comp[nk:]]
+        return _result(_limbs_to_cols(ks, specs), vals[:nlv], vals[nlv:],
+                       cnt.clamp(max=capacity), cnt > capacity)
+
+    out_kw, out_lv, out_rv, count, overflow = join_expand(
+        lk_limbs, lv_cols, rvs, lo, hi, capacity=capacity, how=how)
+    if how == "full" and n_r > 0:
+        out_kw, out_lv, out_rv, count, overflow = append_unmatched_right(
+            out_kw, out_lv, out_rv, count, overflow, rks, rvs, lo, hi, capacity=capacity)
+    return _result(_limbs_to_cols(out_kw, specs), out_lv, out_rv, count, overflow)
+
+
+def searchsorted(sorted_keys: torch.Tensor, queries: torch.Tensor,
+                 side: str = "left") -> torch.Tensor:
+    """``searchsorted`` under the dtype's total order (int32 indices).
+
+    ``sorted_keys`` must be ascending under the total order (the output of
+    :func:`radix_sort_tpu_torch.sort`); NaNs and mixed-sign zeros rank
+    exactly as the sort places them (IEEE total_cmp).
+    """
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    if sorted_keys.dtype != queries.dtype:
+        raise ValueError("sorted_keys and queries must share a dtype")
+    if queries.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=queries.device)
+    return merge_rank(K.encode(sorted_keys), K.encode(queries), side=side)
+
+
+def unique(keys):
+    """Distinct keys with multiplicities (DISTINCT / GROUP BY COUNT(*)).
+
+    Returns ``(unique_keys, counts, num_unique)``: rows [0, num_unique) hold
+    each distinct key once, ascending under the dtype's total order, with
+    its occurrence count; the tail holds the remaining rows (the repeated
+    keys, in order) with count 0. ``keys`` may be a list of equal-length
+    columns (composite DISTINCT); ``unique_keys`` is then a list.
+    """
+    multi = isinstance(keys, (list, tuple))
+    cols = list(keys) if multi else [keys]
+    if not cols:
+        raise ValueError("keys must have at least one column")
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    if any(c.shape[0] != n for c in cols):
+        raise ValueError("all key columns must have equal length")
+    if n == 0:
+        return keys, torch.zeros((0,), dtype=torch.int32, device=dev), _i32(0, dev)
+    limbs, specs = _cols_to_limbs(cols)
+    sk = _stable_sort(limbs, num_keys=len(limbs))
+    first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                       _limbs_differ([w[1:] for w in sk], [w[:-1] for w in sk])])
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    *out_keys, start, num = filter(first, *_limbs_to_cols(sk, specs), pos)
+    # counts[i] = next group's start - this group's start (the last ends at n)
+    nxt = torch.where(pos == num - 1, n, torch.cat([start[1:], start[:1]]))
+    counts = torch.where(pos < num, nxt - start, 0)
+    return (out_keys if multi else out_keys[0]), counts, num

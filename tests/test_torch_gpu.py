@@ -1,5 +1,6 @@
-"""Port tests that need an NVIDIA GPU: the CUDA kernel against its plain
-PyTorch version, and CUDA-event timing. They skip without a GPU.
+"""Port tests that need an NVIDIA GPU: the CUDA kernels against their plain
+PyTorch versions, the join on the card against the join on the CPU, and
+CUDA-event timing. They skip without a GPU.
 
 This file imports neither JAX nor the test harness's fixtures, so it also
 runs where only PyTorch with CUDA is installed:
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from radix_sort_tpu_torch.ops import extract
+import radix_sort_tpu_torch as rst
+from radix_sort_tpu_torch.ops import expand, extract
 from radix_sort_tpu_torch.utils import timing
 
 
@@ -51,6 +53,69 @@ def test_kernel_matches_plain(cuda, K, nbuckets, cpb, n_ops, cap_rows):
     assert torch.equal(gc, rc)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def _desc(rng, spec, n_r):
+    """Descriptors of (lo, m_copy, m_emit) runs with random key/lv words."""
+    desc = np.zeros((len(spec), expand.DESC_COLS), np.int32)
+    desc[:, :2] = rng.integers(-(2**31), 2**31, (len(spec), 2))
+    if spec:
+        desc[:, 2:5] = spec
+    assert (desc[:, 2] + desc[:, 3] <= n_r).all()
+    return torch.from_numpy(desc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiers", "long_and_fill", "many_runs", "preclamped",
+                                  "no_runs"])
+def test_expand_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(len(case))
+    n_r = 200_000
+    if case == "tiers":
+        spec = [(int(rng.integers(0, 4000)), n, n)
+                for n in (1, 2, 127, 128, 129, 383, 384, 385, 895, 896, 1919, 1920, 1921)]
+    elif case == "long_and_fill":
+        spec = [(0, 5000, 5000), (3, 0, 1), (9, 0, 0), (7, 100_000, 100_000),
+                (0, 0, 3000), (11, 0, 1)]
+    elif case == "many_runs":  # zero-emit runs among short ones, many tiles
+        lens = rng.integers(0, 9, 50_000)
+        spec = [(int(rng.integers(0, 1000)), int(n), int(n)) for n in lens]
+    elif case == "preclamped":  # emits clamped so the total is exactly the capacity
+        spec = [(int(rng.integers(0, 1000)), 3000, 3000) for _ in range(40)]
+    else:
+        spec = []
+    capacity = sum(m for _, _, m in spec) + 1000
+    if case == "preclamped":
+        capacity = 100_000
+        emits = np.minimum(np.maximum(capacity - np.cumsum([0] + [m for *_, m in spec])[:-1],
+                                      0), 3000)
+        spec = [(lo, int(e), int(e)) for (lo, _, _), e in zip(spec, emits)]
+    rvs = torch.from_numpy(rng.integers(-(2**31), 2**31, n_r).astype(np.int32)).cuda()
+    desc = _desc(rng, spec, n_r).cuda()
+    before = expand.LAUNCHES
+    got = expand.expand_join_runs(rvs, desc, capacity=capacity)
+    assert expand.LAUNCHES == before + 1
+    ref = expand.expand_join_runs_plain(rvs, desc, capacity=capacity)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "full", "lookup"])
+def test_hash_join_on_card_matches_cpu(cuda, how):
+    rng = np.random.default_rng(7)
+    n_l, n_r = 5000, 20_000
+    lk = torch.from_numpy(rng.integers(0, 6000, n_l).astype(np.int64))
+    rk = torch.from_numpy(rng.integers(0, 6000, n_r).astype(np.int64))
+    lv = torch.from_numpy(rng.random(n_l))
+    rv = torch.from_numpy(rng.integers(0, 1 << 31, n_r).astype(np.int32)).view(torch.uint32)
+    cpu = rst.hash_join(lk, lv, rk, rv, capacity=40_000, how=how)
+    before = expand.LAUNCHES
+    gpu = rst.hash_join(lk.cuda(), lv.cuda(), rk.cuda(), rv.cuda(), capacity=40_000, how=how)
+    assert expand.LAUNCHES > before  # duplicate right keys: lookup expands too
+    for g, c in zip(gpu, cpu):
+        assert g.is_cuda and g.dtype == c.dtype and torch.equal(g.cpu(), c)
 
 
 @pytest.mark.cuda
