@@ -10,19 +10,28 @@ It builds both hand-written kernels from ``csrc/`` (one nvcc each, started
 together) and drives the port's two paths:
 
   * the sort: the bucket-extraction kernel (K1, ``csrc/extract.cu``) held
-    bit-exact against its plain PyTorch version (phase 1); the main path --
+    bit-exact against its plain PyTorch version, also into outputs poisoned
+    with 0x5A5A5A5A, so that every slot, sentinel tail included, is shown
+    written by the kernel itself (phase 1); the main path --
     ``sort_pairs_limbs(..., engine="sample")`` on uniform (u64, u64) rows
     at 31.25M and 250M rows (0.5 and 4.0 GB, the first and last points of
     the reference's sweep) -- and the public sort API, bit-exact against a
     stable ``torch.sort`` oracle (phase 2); K1 timed at the shapes the main
     path gave it (phase 3);
-  * the join: the run-expansion kernel (K2, ``csrc/expand.cu``) held
-    bit-exact against its plain version on run-length specs (phase 4);
-    ``rst.hash_join`` and ``rst.repeat`` at TPC-H scale factor 10 (ORDERS x
-    LINEITEM inner join, CUSTOMER left join ORDERS, a 64x UNNEST), each
-    bit-exact against an oracle built from stable ``torch.sort``,
-    ``torch.searchsorted`` and ``torch.repeat_interleave`` (phase 5); K2
-    timed at the shapes the join path gave it (phase 6).
+  * the join: the whole-row run-expansion kernel (K2, ``csrc/expand.cu``)
+    held bit-exact against its plain version on the reference's run-length
+    specs and on whole rows of every column width into poisoned outputs,
+    a cluster of 1M zero-emit runs included, and that cluster's cost timed
+    (phase 4); ``rst.hash_join`` and ``rst.repeat`` at TPC-H scale factor
+    10 (ORDERS x LINEITEM inner join, CUSTOMER left join ORDERS, a 64x
+    UNNEST), each one K2 launch and bit-exact against an oracle built from
+    stable ``torch.sort``, ``torch.searchsorted`` and
+    ``torch.repeat_interleave`` (phase 5); K2 timed at the shapes the join
+    path gave it, beside its bound and the old three-word schedule's
+    (phase 6);
+  * each kernel wrapper's pieces by device time (``torch.profiler``) at
+    the main paths' shapes: every K1 call of one 31.25M-row sort, and the
+    join's and UNNEST's expansion steps (phase 7).
 
 Each path runs with its kernel's launch count set to 0 just before and
 read just after, and the run fails unless the path went through the
@@ -54,6 +63,8 @@ MAIN_ROWS = (31_250_000, 250_000_000)  # 0.5 GB and 4.0 GB of (u64, u64) rows
 KERNEL_CHUNK = 4096  # the main path's chunk length at 31.25M rows
 DEV = "cuda"
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM data sheet: 3.35 TB/s
+POISON = 0x5A5A5A5A  # output buffers are pre-filled with it where a check
+# must show that the kernel itself writes every slot
 
 # TPC-H scale factor 10 (specification v3, 4.2.3 and 4.2.5): ORDERS has
 # 1.5M x SF rows, CUSTOMER 150k x SF, LINEITEM 1-7 rows per order.
@@ -178,34 +189,49 @@ def check_kernel(rng, gen):
         pairs += list(zip(got, ref)) + [(gt, rt)]
         log(f"kernel vs plain K=1 compactor ops={n_ops}: bit-exact ({int(rt[0])} words)")
 
-    # overflow: capacity far below the runs; counts stay uncapped, writes
-    # past capacity drop, and no word outside the outputs changes
-    K, nb, cpb, cap_rows, n_ops = 8, 2, 32, 16, 3
-    nchunks = nb * cpb
-    bounds = torch.from_numpy(_bounds(rng, nchunks, K, m)).to(DEV)
-    ops = _ops(gen, n_ops, nchunks * m // 128)
-    words = nb * K * cap_rows * 128
-    guard = 4096
-    canary = torch.randint(-(1 << 31), 1 << 31, (n_ops, words + 2 * guard),
-                           dtype=torch.int32, generator=gen, device=DEV)
-    buf = canary.clone()
-    outs = [buf[w, guard:guard + words] for w in range(n_ops)]
-    for o in outs:
-        o.fill_(extract.MAX_WORD)
-    counts = torch.full((nb * K,), -1, dtype=torch.int32, device=DEV)
-    kw = dict(K=K, cap_rows=cap_rows, chunks_per_bucket=cpb, nbuckets=nb)
-    extract.launch(ops, bounds, outs, counts, **kw)
-    ref, rc = extract.bucket_extract_plain(ops, bounds, **kw)
-    torch.cuda.synchronize()
-    check(int((rc > cap_rows * 128).sum()) > 0, "the case must overflow")
-    check(torch.equal(counts, rc), "overflow counts")
-    for o, r in zip(outs, ref):
-        check(torch.equal(o, r.reshape(-1)), "overflow outputs")
-    check(torch.equal(buf[:, :guard], canary[:, :guard]), "canary before outputs")
-    check(torch.equal(buf[:, guard + words:], canary[:, guard + words:]), "canary after")
-    pairs += [(counts, rc)] + [(o, r.reshape(-1)) for o, r in zip(outs, ref)]
-    log(f"kernel vs plain overflow K={K}: counts and outputs bit-exact, "
-        f"{int((rc > cap_rows * 128).sum())} regions over capacity, canary intact")
+    # into outputs poisoned with 0x5A5A5A5A inside a guarded buffer: the
+    # kernel writes every output word itself, sentinels included, and no
+    # word around the outputs. First an overflowed case (capacity far below
+    # the runs: counts stay uncapped, writes past capacity drop), then the
+    # compactor, whose one region is mostly tail, at 1980 leaves
+    for label, K, nb, cpb, cap_rows, counts_in in (
+            ("overflow K=8", 8, 2, 32, 16, None),
+            ("compactor K=1, 1980 regions", 1, 1, 1980, 1980 * 32 + 40,
+             rng.integers(0, m + 1, 1980).astype(np.int32))):
+        n_ops = 3
+        nchunks = nb * cpb
+        if counts_in is None:
+            bounds = torch.from_numpy(_bounds(rng, nchunks, K, m)).to(DEV)
+        else:
+            c = torch.from_numpy(counts_in).to(DEV)
+            bounds = torch.stack([torch.zeros_like(c), c], 1).contiguous()
+        ops = _ops(gen, n_ops, nchunks * m // 128)
+        words = nb * K * cap_rows * 128
+        guard = 4096
+        canary = torch.randint(-(1 << 31), 1 << 31, (n_ops, words + 2 * guard),
+                               dtype=torch.int32, generator=gen, device=DEV)
+        buf = canary.clone()
+        outs = [buf[w, guard:guard + words] for w in range(n_ops)]
+        for o in outs:
+            o.fill_(POISON)
+        counts = torch.full((nb * K,), POISON, dtype=torch.int32, device=DEV)
+        kw = dict(K=K, cap_rows=cap_rows, chunks_per_bucket=cpb, nbuckets=nb)
+        extract.launch(ops, bounds, outs, counts, **kw)
+        ref, rc = extract.bucket_extract_plain(ops, bounds, **kw)
+        torch.cuda.synchronize()
+        check(counts_in is not None or int((rc > cap_rows * 128).sum()) > 0,
+              "the case must overflow")
+        check(torch.equal(counts, rc), f"{label}: counts")
+        for o, r in zip(outs, ref):
+            check(torch.equal(o, r.reshape(-1)), f"{label}: poisoned outputs")
+        check(torch.equal(buf[:, :guard], canary[:, :guard]), f"{label}: canary before")
+        check(torch.equal(buf[:, guard + words:], canary[:, guard + words:]),
+              f"{label}: canary after")
+        pairs += [(counts, rc)] + [(o, r.reshape(-1)) for o, r in zip(outs, ref)]
+        tail = int((ref[0] == extract.MAX_WORD).sum())
+        log(f"kernel vs plain {label}, outputs poisoned: counts and outputs bit-exact, "
+            f"{int((rc > cap_rows * 128).sum())} regions over capacity, {tail:,} sentinel "
+            f"words of {words:,}, canary intact")
     return max_abs_err(pairs)
 
 
@@ -339,10 +365,10 @@ def kernel_at_main_shapes(gen):
         bound = (len(ops) * 4 * (moved + out_words) + 4 * bounds.numel()
                  + 4 * rc.numel()) / HBM_BYTES_PER_MS
         total_b += bound
-        nbytes = len(ops) * (8 * moved + 4 * out_words)
+        nbytes = len(ops) * 4 * (moved + out_words)
         log(f"kernel K={kw['K']} nbuckets={kw['nbuckets']} cpb={kw['chunks_per_bucket']} "
             f"ops={len(ops)} words/op={ops[0].numel():,}: kernel {mk:.3f} ms "
-            f"({nbytes / mk / 1e6:.0f} GB/s of fill+read+write), plain {mp:.3f} ms, "
+            f"({nbytes / mk / 1e6:.0f} GB/s of read+write), plain {mp:.3f} ms, "
             f"bound {bound:.3f} ms")
     log(f"kernel per {n:,}-row sort ({len(calls)} calls): {total_k:.3f} ms, "
         f"plain {total_p:.3f} ms, bound {total_b:.3f} ms; no single PyTorch call "
@@ -431,16 +457,21 @@ def check_expand_kernel(rng, gen):
         log(f"K2 vs plain, {label}: bit-exact ({len(spec):,} runs, {total:,} rows, "
             f"capacity {capacity:,})")
 
-    # canary: the launch writes its outputs and count and nothing around them
+    # canary: the launch writes its poisoned outputs and count, and nothing
+    # around them
     spec = [(int(rng.integers(0, 1000)), int(m), int(m)) for m in rng.integers(0, 50, 5000)]
     desc = _desc(gen, spec, n_r)
     capacity, guard = sum(m for _, _, m in spec) + 77, 4096
-    canary = torch.randint(-(1 << 31), 1 << 31, (4, capacity + 2 * guard), dtype=torch.int32,
+    row = -(-(capacity + 2 * guard) // 4) * 4  # every output starts 16-byte aligned
+    canary = torch.randint(-(1 << 31), 1 << 31, (4, row), dtype=torch.int32,
                            generator=gen, device=DEV)
     buf = canary.clone()
     outs = [buf[w, guard:guard + capacity] for w in range(3)]
+    for o in outs:
+        o.fill_(POISON)
     count = buf[3, guard:guard + 1]
-    expand.launch(rvs, desc, outs, count, capacity=capacity)
+    ends, lo, m_copy, cols = expand._join_runs(rvs, desc)
+    expand.launch(ends, lo, m_copy, cols, outs, count, capacity=capacity)
     ref = expand.expand_join_runs_plain(rvs, desc, capacity=capacity)
     torch.cuda.synchronize()
     for o, r in zip(outs + [count[0]], ref):
@@ -448,7 +479,97 @@ def check_expand_kernel(rng, gen):
     check(torch.equal(buf[:, :guard], canary[:, :guard])
           and torch.equal(buf[:3, guard + capacity:], canary[:3, guard + capacity:])
           and torch.equal(buf[3, guard + 1:], canary[3, guard + 1:]), "K2 canary")
-    log("K2 launch into a guarded buffer: outputs bit-exact, canary intact")
+    log("K2 launch into a guarded, poisoned buffer: outputs bit-exact, canary intact")
+    return max(max_abs_err(pairs), check_rows_kernel(gen))
+
+
+# (dtype, copied, tail bits): every width, bool, floats and unsigned dtypes
+ROW_COLUMNS = [
+    (torch.bool, False, 1), (torch.int8, True, -1), (torch.uint8, False, 0xAB),
+    (torch.int16, False, 0x1234), (torch.uint16, True, 0), (torch.float32, False, 0),
+    (torch.int32, True, -(1 << 31)), (torch.uint32, True, 0x80000000),
+    (torch.float64, True, 0x7FF8000000000001), (torch.int64, False, -1),
+    (torch.uint64, True, 5),
+]
+
+
+def _row_args(gen, emits, capacity, columns, n_src=1 << 20):
+    """(ends, lo, m_copy, Columns) on the card for int64 ``emits``: random
+    copy windows (every 7th run a fill run) and random column bits."""
+    n = emits.shape[0]
+    ends = torch.cumsum(emits, 0).clamp(max=capacity).to(torch.int32)
+    lo = torch.randint(-5, n_src, (n,), dtype=torch.int32, generator=gen, device=DEV)
+    m_copy = torch.minimum(emits, torch.randint(0, 300, (n,), generator=gen, device=DEV))
+    m_copy[::7] = 0
+    cols = []
+    for dt, copied, tail in columns:
+        size = n_src if copied else n
+        if size == 0:
+            v = torch.empty((0,), dtype=dt, device=DEV)
+        elif dt == torch.bool:
+            v = torch.randint(0, 2, (size,), generator=gen, device=DEV).bool()
+        else:
+            v = torch.randint(0, 256, (size * dt.itemsize,), dtype=torch.uint8,
+                              generator=gen, device=DEV).view(dt)
+        cols.append(expand.Column(v, copied, tail))
+    return ends, lo, m_copy.to(torch.int32), cols
+
+
+def _rand_emits(gen, n, high):
+    return torch.randint(0, high, (n,), generator=gen, device=DEV)
+
+
+def check_rows_kernel(gen):
+    """The whole-row kernel against its plain version, one launch per case,
+    into outputs poisoned with 0x5A bytes: every column width, per-column
+    tails, a cluster of 1M consecutive zero-emit runs, emits clamped at
+    capacity, no runs. Then the cluster's cost at R's shape."""
+    zeros = lambda k: torch.zeros((k,), dtype=torch.int64, device=DEV)  # noqa: E731
+    cases = [
+        ("every width, 500,000 runs of 0-8 rows", _rand_emits(gen, 500_000, 9), None),
+        ("runs of 1 to 100,000 rows",
+         torch.tensor([5000, 0, 1, 100_000, 3, 0, 0, 4097, 2], device=DEV), None),
+        ("a cluster of 1,000,000 zero-emit runs",
+         torch.cat([_rand_emits(gen, 3000, 6) + 1, zeros(1_000_000),
+                    _rand_emits(gen, 3000, 6) + 1, zeros(50_000)]), None),
+        ("emits clamped at capacity", _rand_emits(gen, 200_000, 50), 3_000_001),
+        ("no runs", zeros(0), 5000),
+    ]
+    pairs = []
+    for label, emits, capacity in cases:
+        if capacity is None:
+            capacity = int(emits.sum()) + 4099
+        ends, lo, m_copy, cols = _row_args(gen, emits, capacity, ROW_COLUMNS)
+        outs = [torch.full((capacity * c.values.element_size(),), 0x5A, dtype=torch.uint8,
+                           device=DEV).view(c.values.dtype) for c in cols]
+        count = torch.full((1,), POISON, dtype=torch.int32, device=DEV)
+        before = expand.LAUNCHES
+        expand.launch(ends, lo, m_copy, cols, outs, count, capacity=capacity)
+        check(expand.LAUNCHES == before + 1, f"K2 rows {label}: one launch")
+        ref, rc = expand.expand_rows_plain(ends, lo, m_copy, cols, capacity=capacity)
+        torch.cuda.synchronize()
+        check(torch.equal(count[0], rc), f"K2 rows {label}: count")
+        for o, r in zip(outs, ref):
+            check(o.dtype == r.dtype and torch.equal(o.view(torch.uint8), r.view(torch.uint8)),
+                  f"K2 rows {label}: {o.dtype} column")
+        pairs += [(o.view(torch.uint8), r.view(torch.uint8)) for o, r in zip(outs, ref)]
+        pairs.append((count[0], rc))
+        log(f"K2 whole rows vs plain, {label}: bit-exact into poisoned outputs "
+            f"({emits.shape[0]:,} runs, {int(rc):,} rows, capacity {capacity:,}, "
+            f"{len(cols)} columns of 1-8 bytes, one launch)")
+
+    # the cost of a 1M-run zero-emit cluster at R's shape: one i32 column,
+    # 1M runs of 0-128 rows, with and without the cluster in the middle
+    emits = _rand_emits(gen, R_VALUES, 129)
+    clustered = torch.cat([emits[:R_VALUES // 2], zeros(1_000_000), emits[R_VALUES // 2:]])
+    times = {}
+    for label, e in (("without", emits), ("with", clustered)):
+        ends, _, _, cols = _row_args(gen, e, R_CAPACITY, [(torch.int32, False, 0)])
+        times[label] = median(timing.cuda_time_ms(
+            lambda: expand.expand_rows(ends, None, None, cols, capacity=R_CAPACITY), runs=5))
+    log(f"K2 at R's shape ({R_VALUES:,} runs -> 2^26 slots, one i32 column): "
+        f"{times['without']:.3f} ms; with a cluster of 1,000,000 zero-emit runs in the "
+        f"middle {times['with']:.3f} ms")
     return max_abs_err(pairs)
 
 
@@ -557,7 +678,7 @@ def join_path(gen):
                              generator=gen, device=DEV)
     r_counts = torch.randint(0, 129, (R_VALUES,), dtype=torch.int32, generator=gen, device=DEV)
     work = {
-        # label: (call, oracle, K2 calls in the schedule, rows in)
+        # label: (call, oracle, K2 launches (one per expansion), rows in)
         "J1 ORDERS inner join LINEITEM on orderkey (u32 key, i32 o_custkey, "
         "f32 l_extendedprice)": (
             lambda: rst.hash_join(t["o_orderkey"], t["o_custkey32"], t["l_orderkey"],
@@ -571,7 +692,7 @@ def join_path(gen):
                                   t["o_totalprice"], capacity=J2_CAPACITY, how="left"),
             lambda: oracle_join(t["c_custkey"], t["c_acctbal"], t["o_custkey"],
                                 t["o_totalprice"], J2_CAPACITY, left=True),
-            2, t["c_custkey"].shape[0] + t["o_custkey"].shape[0]),
+            1, t["c_custkey"].shape[0] + t["o_custkey"].shape[0]),
         "R repeat of 1M i32 values, counts uniform in [0, 128]": (
             lambda: rst.repeat(r_values, r_counts, total_size=R_CAPACITY),
             lambda: oracle_repeat(r_values, r_counts, R_CAPACITY),
@@ -582,13 +703,85 @@ def join_path(gen):
         got = call()
         torch.cuda.synchronize()
         calls = expand.LAUNCHES - before
-        check(calls == n_calls, f"{label}: {calls} K2 calls, the schedule makes {n_calls}")
+        check(calls == n_calls, f"{label}: {calls} K2 launches, expected {n_calls}")
         want = oracle()
         _check_result(got, want, label)
         log(f"{label}: bit-exact vs the torch oracle, {want[-2]:,} rows, overflow "
             f"{want[-1]}, K2 calls {calls}")
         del got, want
     return work
+
+
+def device_kernels(call):
+    """[(self device us, name)] of each device kernel of one warm ``call()``,
+    from torch.profiler."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernels.append((us, e.key))
+    return sorted(kernels, reverse=True)
+
+
+def log_pieces(label, call):
+    """Log the device time of every kernel of one warm ``call()``."""
+    kernels = device_kernels(call)
+    busy = sum(us for us, _ in kernels)
+    ms = median(timing.cuda_time_ms(call, runs=3))
+    log(f"{label}: {ms:.3f} ms (CUDA events); device busy {busy / 1e3:.3f} ms in "
+        f"{len(kernels)} kernels"
+        + ("" if busy else " (the profiler showed no device time: not measured)"))
+    for us, key in kernels:
+        log(f"  {us / 1e3:9.3f} ms  {key[:110]}")
+
+
+def profile_wrappers(gen):
+    """Each kernel wrapper's pieces by device time, at the main paths'
+    shapes: every K1 call of one 31.25M-row sample sort, and the expansion
+    step (``query._join_expand_kernel`` / ``query._expand_rows``, K2 with
+    what surrounds it) of J1, J2 and R."""
+    n = MAIN_ROWS[0]
+    rows = (*dist.key_uniform_limbs(gen, n), *dist.key_uniform_limbs(gen, n))
+    calls = []
+    real = extract.bucket_extract
+
+    def rec_k1(ops, bounds, **kw):
+        calls.append((ops, bounds, kw))
+        return real(ops, bounds, **kw)
+
+    extract.bucket_extract = rec_k1
+    try:
+        pallas_sort.sort_pairs_limbs(*rows, engine="sample")
+    finally:
+        extract.bucket_extract = real
+    del rows
+    for ops, bounds, kw in calls:
+        log_pieces(f"K1 wrapper K={kw['K']} nbuckets={kw['nbuckets']} ops={len(ops)}",
+                   lambda: real(ops, bounds, **kw))
+    del calls
+    work = join_path(gen)
+    from radix_sort_tpu_torch.ops import query
+    for name, attr in (("J1", "_join_expand_kernel"), ("J2", "_join_expand_kernel"),
+                       ("R", "_expand_rows")):
+        call = next(c for label, (c, *_) in work.items() if label.split()[0] == name)
+        fn = getattr(query, attr)
+        rec = []
+        setattr(query, attr, lambda *a, fn=fn, rec=rec: rec.append(a) or fn(*a))
+        try:
+            call()
+        finally:
+            setattr(query, attr, fn)
+        log_pieces(f"K2 expansion step at {name} ({attr})", lambda: fn(*rec[0]))
+        del rec
 
 
 def time_join_path(work):
@@ -612,27 +805,14 @@ def time_join_path(work):
             f"{rows_in / ms / 1e3:.1f} M input rows/s, {n_out / ms / 1e3:.1f} M output rows/s; "
             f"peak allocated {peak / 2**30:.2f} GiB above the inputs")
     for label, (call, _, _, _) in work.items():
-        call()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = []
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            kernels.append((us, e.key))
+        kernels = device_kernels(call)
         busy = sum(us for us, _ in kernels)
-        k2 = sum(us for us, k in kernels if "expand_runs" in k or "tile_first_run" in k)
+        k2 = sum(us for us, k in kernels if "expand_rows(" in k)
         name = label.split()[0]
         if busy > 0:
             log(f"{name} profile: device busy {busy / 1e3:.3f} ms (wall {out[label]:.3f} ms), "
                 f"K2 {k2 / 1e3:.3f} ms = {100 * k2 / busy:.1f}% of device time")
-            for us, key in sorted(kernels, reverse=True)[:6]:
+            for us, key in kernels[:6]:
                 log(f"  {us / 1e3:9.3f} ms  {key[:110]}")
         else:
             log(f"{name} profile: the profiler showed no device time; K2 share not measured")
@@ -642,56 +822,88 @@ def time_join_path(work):
 # ---------------------------------------------------------------- phase 6
 
 
+def _k2_bounds(ends, m_copy, columns, capacity):
+    """(bytes of this contract, bytes of the old three-word schedule) that
+    one expansion must move: each output slot written once at its column's
+    width, each per-run value and each copied value read once. The old
+    schedule moved 32-bit words, two broadcast and one copied per call,
+    each call writing 12 bytes a slot and reading an 8-word descriptor a
+    run."""
+    n, emits = ends.shape[0], torch.diff(ends, prepend=ends.new_zeros((1,)))
+    copied = [c for c in columns if c.copied]
+    rows = int(torch.minimum(m_copy, emits).clamp(min=0).sum()) if copied else 0
+    nbytes = (4 + 4 * n + (8 * n if copied else 0)
+              + sum(c.values.element_size() * (capacity + (rows if c.copied else n))
+                    for c in columns))
+    words = [(c.values.element_size() + 3) // 4 for c in columns]
+    b_words = sum(w for w, c in zip(words, columns) if not c.copied)
+    c_words = sum(w for w, c in zip(words, columns) if c.copied)
+    calls = max((b_words + 1) // 2, c_words)
+    old = calls * (12 * capacity + 32 * n + 4) + 4 * rows * c_words
+    return nbytes, old
+
+
 def expand_at_join_shapes(work):
-    """Time K2 against its plain version (and, for the UNNEST fill, against
-    torch.repeat_interleave) on the exact arguments J1 and R gave it."""
+    """Time K2 against its plain version (and, for the UNNEST, against
+    torch.repeat_interleave) on the exact arguments J1, J2 and R gave it."""
     recorded = {}
-    real = expand.expand_join_runs
+    real = expand.expand_rows
     for label, (call, _, _, _) in work.items():
-        if not label.startswith(("J1", "R ")):
-            continue
         calls = []
 
-        def recorder(rvs, desc, *, capacity, calls=calls):
-            calls.append((rvs, desc, capacity))
-            return real(rvs, desc, capacity=capacity)
+        def recorder(ends, lo, m_copy, columns, *, capacity, calls=calls):
+            calls.append((ends, lo, m_copy, columns, capacity))
+            return real(ends, lo, m_copy, columns, capacity=capacity)
 
-        expand.expand_join_runs = recorder
+        expand.expand_rows = recorder
         try:
             call()
         finally:
-            expand.expand_join_runs = real
+            expand.expand_rows = real
         recorded[label.split()[0]] = calls
     rows, pairs = [], []
     for shape, calls in recorded.items():
-        for rvs, desc, capacity in calls:
-            got = real(rvs, desc, capacity=capacity)
-            ref = expand.expand_join_runs_plain(rvs, desc, capacity=capacity)
-            check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+        check(len(calls) == 1, f"{shape}: {len(calls)} expansions, expected 1")
+        for ends, lo, m_copy, columns, capacity in calls:
+            args = (ends, lo, m_copy, columns)
+            got, gc = real(*args, capacity=capacity)
+            ref, rc = expand.expand_rows_plain(*args, capacity=capacity)
+            check(torch.equal(gc, rc) and all(torch.equal(g, r) for g, r in zip(got, ref)),
                   f"K2 differs from plain at the {shape} shapes")
-            pairs += list(zip(got, ref))
+            pairs += [(gc, rc)] + [(g.view(torch.uint8), r.view(torch.uint8))
+                                   for g, r in zip(got, ref)]
             del got, ref
-            emits = desc[:, 4]
-            total = int(emits.sum())
-            copied = int(desc[:, 3].sum())
+            total = int(rc)
             library = None
-            if copied == 0:  # all fill runs: one PyTorch call computes the key words
-                def library(desc=desc, emits=emits, total=total):
-                    return torch.repeat_interleave(desc[:, 0], emits, output_size=total)
-            mk, mp, ml = interleaved_ms(lambda: real(rvs, desc, capacity=capacity),
-                                        lambda: expand.expand_join_runs_plain(
-                                            rvs, desc, capacity=capacity), library)
-            # the least bytes: 3 output words per slot written once, each
-            # copied right value and each descriptor row read once
-            nbytes = 12 * capacity + 4 * copied + 4 * desc.numel() + 4
-            bound = nbytes / HBM_BYTES_PER_MS
-            rows.append({"shape": shape, "runs": desc.shape[0], "rows": total,
-                         "capacity": capacity, "ms": mk, "plain_ms": mp,
-                         "bound_ms": bound, "library_ms": ml})
+            if len(columns) == 1 and not columns[0].copied:  # repeat: one PyTorch call
+                emits = torch.diff(ends, prepend=ends.new_zeros((1,)))
+
+                def library(v=columns[0].values, emits=emits, total=total):
+                    return torch.repeat_interleave(v, emits, output_size=total)
+            mk, mp, ml = interleaved_ms(lambda: real(*args, capacity=capacity),
+                                        lambda: expand.expand_rows_plain(
+                                            *args, capacity=capacity), library)
+            nbytes, old_bytes = _k2_bounds(ends, m_copy, columns, capacity)
+            bound, old_bound = nbytes / HBM_BYTES_PER_MS, old_bytes / HBM_BYTES_PER_MS
+            widths = "+".join(f"{c.values.element_size()}{'c' if c.copied else 'b'}"
+                              for c in columns)
+            row = {"shape": shape, "runs": ends.shape[0], "rows": total,
+                   "capacity": capacity, "columns": widths, "ms": mk, "plain_ms": mp,
+                   "bound_ms": bound, "old_bound_ms": old_bound, "library_ms": ml}
             lib = f", torch.repeat_interleave {ml:.3f} ms" if ml is not None else ""
-            log(f"K2 at {shape}: {desc.shape[0]:,} runs -> {total:,} rows in {capacity:,} "
-                f"slots: kernel {mk:.3f} ms ({nbytes / mk / 1e6:.0f} GB/s), plain {mp:.3f} ms, "
-                f"bound {bound:.3f} ms{lib}")
+            if lo is not None:
+                # the same launch with the copy windows laid out in run order:
+                # what the copied column's scattered reads cost
+                lo_seq = (torch.cumsum(m_copy, 0, dtype=torch.int64) - m_copy).to(torch.int32)
+                row["run_order_copy_ms"] = median(timing.cuda_time_ms(
+                    lambda: real(ends, lo_seq, m_copy, columns, capacity=capacity), runs=5))
+                lib += (f"; with the copy windows in run order {row['run_order_copy_ms']:.3f} ms")
+            rows.append(row)
+            log(f"K2 at {shape}: {ends.shape[0]:,} runs -> {total:,} rows in {capacity:,} "
+                f"slots, columns {widths} (bytes, b broadcast, c copied): kernel {mk:.3f} ms "
+                f"({nbytes / mk / 1e6:.0f} GB/s), plain {mp:.3f} ms, bound {bound:.3f} ms "
+                f"({100 * bound / mk:.0f}% of it; the old three-word schedule's bound "
+                f"{old_bound:.3f} ms){lib}")
     return rows, max_abs_err(pairs)
 
 
@@ -734,6 +946,8 @@ def main():
 
     time_join_path(work)
     k2_rows, k2_err2 = expand_at_join_shapes(work)
+    del work
+    profile_wrappers(gen)
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
@@ -760,8 +974,8 @@ def main():
         "bound_ms": r_row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": r_row["library_ms"],
-        "shape": "R: the repeat call (torch.repeat_interleave computes its fill); "
-                 "every shape in calls",
+        "shape": "R: the repeat call, one i32 column (torch.repeat_interleave computes "
+                 "the same); every shape in calls",
         "calls": k2_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {

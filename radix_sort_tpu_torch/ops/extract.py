@@ -13,11 +13,11 @@ tensor it runs :func:`bucket_extract_plain`, the plain PyTorch version of
 the same contract, which the tests and ``chip_smoke.py`` hold the kernel
 against. Any other device raises.
 
-The kernel is bound by bytes moved: each valid word is read once and
-written once (about 8 bytes per 32-bit word and operand) plus the sentinel
-pre-fill; the source note in ``csrc/extract.cu`` says how the design keeps
-to that. The compactor (concatenate the valid prefixes of padded regions)
-is the K=1 case of the same kernel.
+The kernel is bound by bytes moved: each valid word is read once and each
+output word (valid word or sentinel) written once, by the kernel itself;
+the source note in ``csrc/extract.cu`` says how the design keeps to that.
+The compactor (concatenate the valid prefixes of padded regions) is the
+K=1 case of the same kernel.
 """
 
 from __future__ import annotations
@@ -97,25 +97,29 @@ _FN = None
 
 
 def _kernel():
-    """The C entry point of csrc/extract.cu, built and bound at first use."""
+    """(C entry point, chunks per scan tile) of csrc/extract.cu, built and
+    bound at first use."""
     global _FN
     if _FN is None:
-        fn = _build.load("extract").rst_bucket_extract
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [pp, pp, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        lib = _build.load("extract")
+        fn = lib.rst_bucket_extract
+        pp, vp, i = ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [pp, pp, i, vp, vp, vp, vp, i, i, i, i, ctypes.c_longlong, vp]
         fn.restype = ctypes.c_int
-        _FN = fn
+        lib.rst_extract_scan_tile.argtypes = []
+        lib.rst_extract_scan_tile.restype = ctypes.c_int
+        _FN = (fn, lib.rst_extract_scan_tile())
     return _FN
 
 
 def launch(ops, bounds, outs, counts, *, K, cap_rows, chunks_per_bucket, nbuckets):
     """Run the CUDA kernel into caller-given outputs.
 
-    ``outs``: one contiguous int32 tensor of ``nbuckets*K*cap_rows*128``
-    words per operand (the kernel writes only valid words; slots it does not
-    write keep what they held). ``counts``: int32 of ``nbuckets*K``.
+    ``outs``: one contiguous, 16-byte aligned int32 tensor of
+    ``nbuckets*K*cap_rows*128`` words per operand; the kernel writes every
+    word, the sentinel :data:`MAX_WORD` at or past each region's count.
+    ``counts``: int32 of ``nbuckets*K``. Bounds must be non-decreasing
+    within ``[0, words per chunk]``, as :func:`bucket_extract` takes them.
     """
     global LAUNCHES
     nchunks, m = _geometry(ops, bounds, K, chunks_per_bucket, nbuckets)
@@ -127,24 +131,30 @@ def launch(ops, bounds, outs, counts, *, K, cap_rows, chunks_per_bucket, nbucket
     out_words = nbuckets * K * cap_rows * LANES
     for o in outs:
         if (o.dtype != torch.int32 or o.device != dev or not o.is_contiguous()
-                or o.numel() != out_words):
-            raise ValueError(f"outputs must be contiguous int32 of {out_words} words on {dev}")
+                or o.numel() != out_words or o.data_ptr() % 16):
+            raise ValueError(f"outputs must be contiguous, 16-byte aligned int32 of "
+                             f"{out_words} words on {dev}")
     if (counts.dtype != torch.int32 or counts.device != dev or not counts.is_contiguous()
             or counts.numel() != nbuckets * K):
         raise ValueError(f"counts must be contiguous int32 of {nbuckets * K} on {dev}")
     if len(outs) != len(ops):
         raise ValueError("one output per operand")
-    fn = _kernel()
+    fn, scan_tile = _kernel()
+    # the kernel loads each chunk as 16-byte vectors
     ops = [o.contiguous() for o in ops]
+    ops = [o if o.data_ptr() % 16 == 0 else o.clone() for o in ops]
     bounds = bounds.contiguous()
-    offs = torch.empty((nchunks, K), dtype=torch.int32, device=dev)
+    # int32 scratch: each scan tile's run totals, then each run's offset
+    n_tsum = nbuckets * -(-chunks_per_bucket // scan_tile) * K
+    scratch = torch.empty((n_tsum + nchunks * K,), dtype=torch.int32, device=dev)
     n = len(ops)
     ins = (ctypes.c_void_p * n)(*[o.data_ptr() for o in ops])
     dsts = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(ins, dsts, n, bounds.data_ptr(), offs.data_ptr(), counts.data_ptr(),
-                 nchunks, K, m, chunks_per_bucket, cap_rows * LANES, stream)
+        err = fn(ins, dsts, n, bounds.data_ptr(), scratch.data_ptr(),
+                 scratch.data_ptr() + 4 * n_tsum, counts.data_ptr(), nchunks, K, m,
+                 chunks_per_bucket, cap_rows * LANES, stream)
     if err:
         raise RuntimeError(f"extract kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -168,8 +178,7 @@ def bucket_extract(ops, bounds, *, K, cap_rows, chunks_per_bucket, nbuckets):
     if dev.type != "cuda":
         raise ValueError(f"bucket_extract runs on CPU or CUDA tensors, got {dev}")
     rows = nbuckets * K * cap_rows
-    outs = [torch.full((rows, LANES), MAX_WORD, dtype=torch.int32, device=dev)
-            for _ in ops]
+    outs = [torch.empty((rows, LANES), dtype=torch.int32, device=dev) for _ in ops]
     counts = torch.empty((nbuckets * K,), dtype=torch.int32, device=dev)
     launch(ops, bounds, outs, counts, K=K, cap_rows=cap_rows,
            chunks_per_bucket=chunks_per_bucket, nbuckets=nbuckets)

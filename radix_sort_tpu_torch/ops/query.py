@@ -54,7 +54,6 @@ ZERO_LIMB = -(1 << 31)  # the port's image of the reference's zero limb
 _INT32_MAX = (1 << 31) - 1
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
-_SIGNED_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _signed(a):
@@ -226,79 +225,25 @@ def filter(mask: torch.Tensor, *arrays: torch.Tensor):
 # ------------------------------------------------------------ expansion on K2
 
 
-def _op_to_words(a):
-    """Operand column -> list of int32 words: one for 1-, 2- and 4-byte
-    dtypes (narrow ones sign-extended from their same-width integer view),
-    two for 8-byte dtypes, the high and low halves of the bits (a plain
-    split, not ``keys.split64``'s rank limbs: a fill run's zero words must
-    read back as a zero value)."""
-    s = a.view(_SIGNED_OF_SIZE[a.element_size()])
-    if s.dtype == torch.int64:
-        return [(s >> 32).to(torch.int32), s.to(torch.int32)]  # .to keeps the low half
-    return [s.to(torch.int32)]
-
-
-def _words_to_op(words, dtype, valid):
-    """Inverse of :func:`_op_to_words`, rows outside ``valid`` zeroed."""
-    sdt = _SIGNED_OF_SIZE[dtype.itemsize]
-    if sdt == torch.int64:
-        s = (words[0].to(torch.int64) << 32) | (words[1].to(torch.int64) & 0xFFFFFFFF)
-    else:
-        s = words[0].to(sdt)
-    return _mask(valid, s).view(dtype)
-
-
-def _kernel_word_width(a):
-    """int32 words K2 moves for one operand column (every dtype rides the
-    kernel; the reference's f64 and sub-4-byte limits are its relay's)."""
-    return 2 if a.element_size() == 8 else 1
-
-
-def _expand_words(b_srcs, c_srcs, lo, m_copy, emit_c, capacity):
-    """Expand int32 word columns through K2 in the reference's call
-    schedule: each call carries two run-broadcast words (key limbs,
-    left-value words) and one run-copied word (right-value words, read
-    from ``[lo, lo + m_copy)``), so ``max(ceil(len(b_srcs)/2),
-    len(c_srcs))`` calls move the whole row. Returns (broadcast outputs,
-    copied outputs), each with the kernel's all-ones tail."""
-    n = emit_c.shape[0]
-    dev = emit_c.device
-    z = torch.zeros((n,), dtype=torch.int32, device=dev)
-    rv0 = torch.zeros((1,), dtype=torch.int32, device=dev)
-    lo = z if lo is None else lo
-    out_b, out_c = [], []
-    for call in range(max((len(b_srcs) + 1) // 2, len(c_srcs))):
-        b = b_srcs[2 * call:2 * call + 2]
-        c = c_srcs[call] if call < len(c_srcs) else None
-        cols = [*b, *[z] * (2 - len(b)), lo, z if c is None else m_copy, emit_c, z, z, z]
-        desc = torch.stack(cols, dim=1)
-        ob0, ob1, oc, _ = expand.expand_join_runs(rv0 if c is None else c, desc,
-                                                  capacity=capacity)
-        out_b += [ob0, ob1][:len(b)]
-        if c is not None:
-            out_c.append(oc)
-    return out_b, out_c
-
-
 def _run_sums(emit, capacity):
     """The prefix-sum bookkeeping of an expansion, summed in int64:
-    ``(emit_c, count, overflow)``, with ``emit_c`` the emits clamped so the
-    cumulative output stays within ``capacity`` (int32). A true total of
-    2**31 rows or more is where the reference's int32 running sum wraps and
-    its guard forces the overflow flag and a count of ``capacity``; in
-    int64 such a total is simply above the capacity, so both agree."""
-    e = emit.to(torch.int64)
-    ends = torch.cumsum(e, 0)
-    starts = ends - e
-    total = ends[-1] if e.shape[0] else torch.zeros((), dtype=torch.int64, device=e.device)
-    emit_c = torch.minimum((capacity - starts).clamp(min=0), e).to(torch.int32)
-    return emit_c, total.clamp(max=capacity).to(torch.int32), total > capacity
+    ``(ends, count, overflow)``, with ``ends`` the inclusive prefix sum of
+    the emits clamped at ``capacity`` (int32), which cuts each run so the
+    cumulative output stays within it. A true total of 2**31 rows or more
+    is where the reference's int32 running sum wraps and its guard forces
+    the overflow flag and a count of ``capacity``; in int64 such a total is
+    simply above the capacity, so both agree."""
+    ends = torch.cumsum(emit, 0, dtype=torch.int64)
+    total = ends[-1] if ends.shape[0] else torch.zeros((), dtype=torch.int64,
+                                                       device=emit.device)
+    return (ends.clamp(max=capacity).to(torch.int32), total.clamp(max=capacity).to(torch.int32),
+            total > capacity)
 
 
 def _expand_rows(cols, counts, total_size):
     """Shared UNNEST core: emit row i of every column ``counts[i]`` times,
-    in order, into static ``total_size`` rows, through K2 (broadcast-fill
-    runs, two words per call). Returns ``(outs, count, overflow)`` with
+    in order, into static ``total_size`` rows, through K2 (every column
+    broadcast, tail 0). Returns ``(outs, count, overflow)`` with
     :func:`repeat`'s contract."""
     dev = counts.device
     if counts.shape[0] == 0:
@@ -306,15 +251,9 @@ def _expand_rows(cols, counts, total_size):
                 _i32(0, dev), torch.tensor(False, device=dev))
     # the reference's astype(int32): wide counts wrap, then negatives clamp
     counts = counts.to(torch.int32).clamp(min=0)
-    emit_c, count, overflow = _run_sums(counts, total_size)
-    words = [w for c in cols for w in _op_to_words(c)]
-    out_b, _ = _expand_words(words, [], None, None, emit_c, total_size)
-    valid = torch.arange(total_size, device=dev) < count
-    outs, pos = [], 0
-    for c in cols:
-        w = _kernel_word_width(c)
-        outs.append(_words_to_op(out_b[pos:pos + w], c.dtype, valid))
-        pos += w
+    ends, count, overflow = _run_sums(counts, total_size)
+    outs, _ = expand.expand_rows(ends, None, None, [expand.Column(c) for c in cols],
+                                 capacity=total_size)
     return outs, count, overflow
 
 
@@ -392,27 +331,20 @@ def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner"):
 
 
 def _join_expand_kernel(lkws, lvs, rvs_l, lo, matches, emit, capacity):
-    """Run-append expansion through K2 (``ops/expand.py``). Emission
-    lengths are clamped so the cumulative output never exceeds
-    ``capacity``: the first ``capacity`` rows are exact even on overflow.
-    Returns ``(key_word_list, lv_list, rv_list, count, overflow)``."""
-    emit_c, count, overflow = _run_sums(emit, capacity)
-    m_copy = torch.minimum(matches, emit_c)
-    b_srcs = list(lkws) + [w for lv in lvs for w in _op_to_words(lv)]
-    c_srcs = [w for rv in rvs_l for w in _op_to_words(rv)]
-    out_b, out_c = _expand_words(b_srcs, c_srcs, lo, m_copy, emit_c, capacity)
-    valid = torch.arange(capacity, device=lo.device) < count
-
-    def _cols(words, cols):
-        outs, pos = [], 0
-        for c in cols:
-            w = _kernel_word_width(c)
-            outs.append(_words_to_op(words[pos:pos + w], c.dtype, valid))
-            pos += w
-        return outs
-
-    out_ks = [_mask(valid, w, ZERO_LIMB) for w in out_b[:len(lkws)]]
-    return (out_ks, _cols(out_b[len(lkws):], lvs), _cols(out_c, rvs_l), count, overflow)
+    """Run-append expansion through K2 (``ops/expand.py``), the whole row
+    in one call: key limbs and left values broadcast per left row, right
+    values copied from its match range ``[lo, lo + matches)``; tails
+    :data:`ZERO_LIMB` for the keys and 0 for the values. The clamped run
+    ends cut emission so the cumulative output never exceeds ``capacity``:
+    the first ``capacity`` rows are exact even on overflow (a run cut
+    short copies fewer rows, so ``matches`` needs no clamp). Returns
+    ``(key_word_list, lv_list, rv_list, count, overflow)``."""
+    ends, count, overflow = _run_sums(emit, capacity)
+    cols = ([expand.Column(k, tail=ZERO_LIMB) for k in lkws]
+            + [expand.Column(v) for v in lvs] + [expand.Column(v, copied=True) for v in rvs_l])
+    outs, _ = expand.expand_rows(ends, lo, matches, cols, capacity=capacity)
+    nk, nl = len(lkws), len(lvs)
+    return outs[:nk], outs[nk:nk + nl], outs[nk + nl:], count, overflow
 
 
 def append_unmatched_right(out_ks, out_lv, out_rv, count, overflow, rks, rvs, lo, hi,
@@ -453,7 +385,7 @@ def append_unmatched_right(out_ks, out_lv, out_rv, count, overflow, rks, rvs, lo
         return buf[:capacity].view(o.dtype)
 
     out_ks = [_put(ok, ck) for ok, ck in zip(out_ks, cks)]
-    # left values of appended rows are 0: the expansion's mask zeroed them
+    # left values of appended rows are 0: the expansion's tail
     orv_l = [_put(o, c) for o, c in zip(orv_l, crvs)]
     total = count + cnt_u
     return (out_ks, out_lv, orv_l if multi_rv else orv_l[0],

@@ -133,6 +133,107 @@ def test_long_fill_runs_match_numpy():
     assert int(c) == capacity - 3
 
 
+# ---------------------------------------------------------------- whole rows
+
+# (dtype, copied, tail): every width, bool, floats and unsigned dtypes
+ROW_COLUMNS = [
+    (np.bool_, False, 1), (np.int8, True, -1), (np.uint8, False, 0xAB),
+    (np.int16, False, 0), (np.uint16, True, 0xFFFF), (np.float32, False, 0),
+    (np.uint32, True, 0x80000000), (np.int32, False, -(1 << 31)),
+    (np.float64, True, 0x7FF8000000000001), (np.int64, False, -1), (np.uint64, True, 5),
+]
+
+
+def _row_runs(case, rng):
+    """(emits, m_copy, capacity) of one case; m_copy <= emits."""
+    if case == "mixed":
+        emits = rng.integers(0, 7, 400)
+    elif case == "zero_emit_clusters":  # at the start, inside and at the end
+        emits = np.concatenate([np.zeros(3000, np.int64), rng.integers(1, 5, 50),
+                                np.zeros(20_000, np.int64), rng.integers(1, 5, 50),
+                                np.zeros(5000, np.int64)])
+    elif case == "clamped_at_capacity":  # the total overflows; ends clamp at it
+        emits = rng.integers(0, 40, 300)
+    elif case == "no_runs":
+        emits = np.zeros(0, np.int64)
+    else:
+        raise KeyError(case)
+    m_copy = np.minimum(emits, rng.integers(0, 8, emits.shape[0]))
+    m_copy[::5] = 0  # fill runs
+    capacity = 2000 if case == "clamped_at_capacity" else int(emits.sum()) + 37
+    return emits, m_copy, capacity
+
+
+def _numpy_rows(emits, lo, m_copy, cols, capacity):
+    """np.repeat plus gathers: each column's expected output, and the count."""
+    ends = np.minimum(np.cumsum(emits), capacity)
+    em = np.diff(ends, prepend=0)  # the clamped emits
+    total = int(ends[-1]) if ends.size else 0
+    run = np.repeat(np.arange(em.shape[0]), em)
+    j = np.arange(total) - np.repeat(ends - em, em)
+    outs = []
+    for values, copied, tail in cols:
+        w = values.dtype.itemsize
+        out = np.full(capacity, tail & ((1 << 8 * w) - 1), np.dtype(f"u{w}")).view(values.dtype)
+        if copied:
+            src = np.clip(lo[run] + j, 0, values.shape[0] - 1)
+            x = np.where(j < m_copy[run], values[src], np.zeros((), values.dtype))
+        else:
+            x = values[run]
+        out[:total] = x
+        outs.append(out)
+    return outs, total
+
+
+@pytest.mark.parametrize("case", ["mixed", "zero_emit_clusters", "clamped_at_capacity",
+                                  "no_runs"])
+def test_expand_rows_plain_matches_numpy(rng, case):
+    emits, m_copy, capacity = _row_runs(case, rng)
+    n, n_src = emits.shape[0], 500
+    lo = rng.integers(-3, n_src, n)  # the copy index clamps into [0, n_src)
+
+    def values(dt, size):  # every bit pattern (NaNs included); bools 0 or 1
+        if dt == np.bool_:
+            return rng.random(size) < 0.5
+        return rng.integers(0, 256, size * np.dtype(dt).itemsize, dtype=np.uint8).view(dt)
+
+    cols = [(values(dt, n_src if cp else n), cp, tail) for dt, cp, tail in ROW_COLUMNS]
+    want, total = _numpy_rows(emits, lo, m_copy, cols, capacity)
+    ends = torch.from_numpy(np.minimum(np.cumsum(emits), capacity).astype(np.int32))
+    before = tx.LAUNCHES
+    outs, count = tx.expand_rows(
+        ends, torch.from_numpy(lo.astype(np.int32)), torch.from_numpy(m_copy.astype(np.int32)),
+        [tx.Column(torch.from_numpy(v.copy()), cp, tail) for v, cp, tail in cols],
+        capacity=capacity)
+    assert tx.LAUNCHES == before  # CPU tensors never reach the CUDA kernel
+    assert count.dtype == torch.int32 and count.shape == () and int(count) == total
+    for o, w, (v, _, _) in zip(outs, want, cols):
+        assert o.dtype == torch.from_numpy(v).dtype and tuple(o.shape) == (capacity,)
+        np.testing.assert_array_equal(o.numpy().view(np.uint8), w.view(np.uint8))
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("ends_int64", "ends"), ("broadcast_length", "one value per run"),
+    ("copied_lengths", "one length"), ("no_lo", "lo must be"), ("complex", "bytes"),
+])
+def test_expand_rows_rejects_malformed_arguments(bad, match):
+    ends = torch.tensor([2, 2, 5], dtype=torch.int32)
+    lo = m_copy = torch.zeros(3, dtype=torch.int32)
+    cols = [tx.Column(torch.arange(3)), tx.Column(torch.arange(4), copied=True)]
+    if bad == "ends_int64":
+        ends = ends.to(torch.int64)
+    elif bad == "broadcast_length":
+        cols[0] = tx.Column(torch.arange(4))
+    elif bad == "copied_lengths":
+        cols.append(tx.Column(torch.arange(5), copied=True))
+    elif bad == "no_lo":
+        lo = None
+    else:
+        cols.append(tx.Column(torch.zeros(3, dtype=torch.complex64)))
+    with pytest.raises(ValueError, match=match):
+        tx.expand_rows(ends, lo, m_copy, cols, capacity=8)
+
+
 def test_expand_join_runs_rejects_other_devices():
     rvs = torch.zeros((1,), dtype=torch.int32, device="meta")
     desc = torch.zeros((1, tx.DESC_COLS), dtype=torch.int32, device="meta")

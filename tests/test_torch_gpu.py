@@ -55,6 +55,95 @@ def test_kernel_matches_plain(cuda, K, nbuckets, cpb, n_ops, cap_rows):
         assert torch.equal(g, r)
 
 
+POISON = 0x5A5A5A5A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["regions", "compactor_tail"])
+def test_kernel_writes_every_word(cuda, case):
+    """Outputs poisoned with 0x5A5A5A5A before the launch come back equal to
+    the plain version: the kernel writes every slot, sentinel tails
+    included (the compactor's tail is most of its one region)."""
+    rng = np.random.default_rng(11)
+    m = 4096
+    if case == "regions":
+        K, nbuckets, cpb, cap_rows = 8, 3, 70, 2304  # several scan tiles per region
+        bounds = torch.from_numpy(_bounds(rng, nbuckets * cpb, K, m))
+    else:
+        K, nbuckets, cpb, cap_rows = 1, 1, 300, 32 * 300 + 40
+        counts = torch.from_numpy(rng.integers(0, m + 1, cpb).astype(np.int32))
+        bounds = torch.stack([torch.zeros_like(counts), counts], 1)
+    ops = [torch.from_numpy(rng.integers(-(2**31), 2**31, nbuckets * cpb * m)
+                            .astype(np.int32)).reshape(-1, 128).cuda() for _ in range(3)]
+    bounds = bounds.cuda()
+    kw = dict(K=K, cap_rows=cap_rows, chunks_per_bucket=cpb, nbuckets=nbuckets)
+    outs = [torch.full((nbuckets * K * cap_rows * 128,), POISON, dtype=torch.int32,
+                       device="cuda") for _ in ops]
+    counts = torch.full((nbuckets * K,), POISON, dtype=torch.int32, device="cuda")
+    extract.launch(ops, bounds, outs, counts, **kw)
+    ref, rc = extract.bucket_extract_plain(ops, bounds, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, rc)
+    for o, r in zip(outs, ref):
+        assert torch.equal(o, r.reshape(-1))
+
+
+def _runs(rng, case):
+    """(emits, m_copy, capacity) of a whole-row case."""
+    if case == "mixed":
+        emits = rng.integers(0, 9, 60_000)
+    elif case == "long_runs":
+        emits = np.array([5000, 0, 1, 100_000, 3, 0, 0, 4097, 2], np.int64)
+    elif case == "zero_emit_cluster":  # longer than a tile walks
+        emits = np.concatenate([rng.integers(1, 6, 3000), np.zeros(1_000_000, np.int64),
+                                rng.integers(1, 6, 3000), np.zeros(50_000, np.int64)])
+    elif case == "clamped":
+        emits = rng.integers(0, 50, 20_000)
+    else:
+        emits = np.zeros(0, np.int64)
+    m_copy = np.minimum(emits, rng.integers(0, 200_000, emits.shape[0]))
+    m_copy[::7] = 0
+    capacity = 300_001 if case == "clamped" else int(emits.sum()) + 4099
+    return emits, m_copy, capacity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "long_runs", "zero_emit_cluster", "clamped",
+                                  "no_runs"])
+def test_expand_rows_kernel_matches_plain(cuda, case):
+    """The whole-row kernel against its plain version, into outputs poisoned
+    with 0x5A bytes: every width, per-column tails, one launch."""
+    rng = np.random.default_rng(len(case))
+    emits, m_copy, capacity = _runs(rng, case)
+    n, n_src = emits.shape[0], 250_000
+    ends = torch.from_numpy(np.minimum(np.cumsum(emits), capacity).astype(np.int32)).cuda()
+    lo = torch.from_numpy(rng.integers(-5, n_src, n).astype(np.int32)).cuda()
+    mc = torch.from_numpy(m_copy.astype(np.int32)).cuda()
+    cols = []
+    for dt, copied, tail in [(torch.bool, False, 1), (torch.int8, True, -1),
+                             (torch.int16, False, 0x1234), (torch.uint16, True, 0),
+                             (torch.float32, False, 0), (torch.int32, True, -(1 << 31)),
+                             (torch.float64, True, 0), (torch.int64, False, -1)]:
+        size = n_src if copied else n
+        raw = torch.tensor(rng.integers(0, 256, size * dt.itemsize), dtype=torch.uint8)
+        if size == 0:
+            v = torch.empty((0,), dtype=dt)
+        else:
+            v = (raw[:size] & 1).bool() if dt == torch.bool else raw.view(dt)
+        cols.append(expand.Column(v.cuda(), copied, tail))
+    outs = [torch.full((capacity * c.values.element_size(),), 0x5A, dtype=torch.uint8,
+                       device="cuda").view(c.values.dtype) for c in cols]
+    count = torch.full((1,), POISON, dtype=torch.int32, device="cuda")
+    before = expand.LAUNCHES
+    expand.launch(ends, lo, mc, cols, outs, count, capacity=capacity)
+    assert expand.LAUNCHES == before + 1
+    ref, rc = expand.expand_rows_plain(ends, lo, mc, cols, capacity=capacity)
+    torch.cuda.synchronize()
+    assert int(count[0]) == int(rc)
+    for o, r in zip(outs, ref):
+        assert o.dtype == r.dtype and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
+
+
 def _desc(rng, spec, n_r):
     """Descriptors of (lo, m_copy, m_emit) runs with random key/lv words."""
     desc = np.zeros((len(spec), expand.DESC_COLS), np.int32)

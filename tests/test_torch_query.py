@@ -3,7 +3,7 @@
 The same seeded numpy inputs go through the JAX package and the port on the
 CPU; every output -- values, padding tails, counts and overflow flags --
 must agree bit for bit (floats by their bits). In the port every inner and
-left join expansion and every ``repeat`` runs the schedule of kernel K2
+left join expansion and every ``repeat`` runs kernel K2's whole-row expansion
 (its plain version on the CPU); the reference picks a gather formulation
 or its Pallas kernel (interpret mode here) by fanout, so both reference
 routes are compared: fanout 20 at a capacity of at most 2**16 takes the
@@ -279,6 +279,31 @@ def test_hash_join_overflow(rng, how):
     j, t = _both_joins(*_join_inputs(rng, 4), capacity=20 if how == "semi" else 50, how=how)
     assert bool(t[4])
     assert_same(j, t, how)
+
+
+def test_hash_join_j2_shape_left_join(rng):
+    """CUSTOMER left join ORDERS as chip_smoke.py's J2 runs it, at a small
+    size: i64 keys, i64 left values, f64 right values (one K2 launch on the
+    card), a third of the customers without an order."""
+    n_c, n_o = 90, 600
+    ck = (rng.permutation(n_c) + 1).astype(np.int64)
+    ok = rng.choice(ck[ck % 3 != 0], n_o).astype(np.int64)
+    j, t = _both_joins(ck, rng.integers(-99_999, 10**6, n_c).astype(np.int64), ok,
+                       col(rng, np.float64, n_o), capacity=1024, how="left")
+    assert int(t[3]) == n_o + int((ck % 3 == 0).sum()) and not bool(t[4])
+    assert_same(j, t, "J2 shape")
+
+
+def test_hash_join_inner_long_unmatched_run(rng):
+    """An inner join whose left side holds 20,000 consecutive unmatched rows
+    (zero-emit runs, more than one kernel tile walks) between matched ones."""
+    lk = np.concatenate([rng.integers(0, 40, 100), np.arange(1000, 21_000),
+                         rng.integers(0, 40, 100)]).astype(np.uint32)
+    rk = rng.integers(0, 40, 400).astype(np.uint32)
+    j, t = _both_joins(lk, col(rng, np.int32, lk.shape[0]), rk, col(rng, np.float32, 400),
+                       capacity=8192, how="inner")
+    assert 0 < int(t[3]) < 8192
+    assert_same(j, t, "long unmatched run")
 
 
 def test_hash_join_int32_wrap(rng):
