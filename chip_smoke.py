@@ -31,7 +31,18 @@ together) and drives the port's two paths:
     (phase 6);
   * each kernel wrapper's pieces by device time (``torch.profiler``) at
     the main paths' shapes: every K1 call of one 31.25M-row sort, and the
-    join's and UNNEST's expansion steps (phase 7).
+    join's and UNNEST's expansion steps (phase 7);
+  * GROUP BY and ORDER BY at TPC-H scale factor 10 (phase 8): A1 Q1 (a
+    filter and one multi-aggregate), A2 Q18's HAVING subquery and its top
+    100 orders, A3 Q16's count(distinct) with a median, A4 a ROLLUP over
+    Q1's rows, A5 every other aggregation grouped by l_orderkey, each
+    against an oracle of ``torch.unique``, stable ``torch.sort``,
+    ``index_add_`` and ``scatter_reduce`` (integers, order statistics and
+    permutations bit-exact; float sums, means, var and std within the
+    worst case of recursive summation in any order); O1 a three-column
+    ``lexsort`` of LINEITEM and O2 a 128-bit ``sort_pairs128``, both on the
+    kernel engine, so K1 runs on the ORDER BY path; then K1 against its
+    plain version at those shapes.
 
 Each path runs with its kernel's launch count set to 0 just before and
 read just after, and the run fails unless the path went through the
@@ -43,6 +54,7 @@ before it is the per-kernel JSON record.
 
 from __future__ import annotations
 
+import datetime
 import json
 import statistics
 import subprocess
@@ -74,6 +86,19 @@ J1_CAPACITY = 1 << 26  # ~60M LINEITEM rows
 J2_CAPACITY = 1 << 24  # 15M orders + 0.5M customers without one
 R_VALUES = 1_000_000
 R_CAPACITY = 1 << 26  # counts uniform in [0, 128]: ~64M rows
+SF10_PARTS = 2_000_000  # PART 200k x SF, PARTSUPP 4 rows per part
+SF10_SUPPLIERS = 100_000  # S = 10k x SF in the PS_SUPPKEY formula
+O2_ROWS = MAIN_ROWS[0]  # 31.25M uniform (u64 hi, u64 lo) keys
+
+
+def _days(y, m, d):
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+# TPC-H dates (4.2.3, 2.4.1): STARTDATE, ENDDATE, CURRENTDATE, and Q1's
+# ship-date bound 1998-12-01 minus DELTA = 90 days
+STARTDATE, ENDDATE, CURRENTDATE = _days(1992, 1, 1), _days(1998, 12, 31), _days(1995, 6, 17)
+Q1_SHIPDATE = _days(1998, 12, 1) - 90
 
 
 def log(*args):
@@ -332,6 +357,15 @@ def kernel_at_main_shapes(gen):
     n = MAIN_ROWS[0]
     khi, klo = dist.key_uniform_limbs(gen, n)
     vhi, vlo = dist.key_uniform_limbs(gen, n)
+    calls = record_k1(lambda: pallas_sort.sort_pairs_limbs(khi, klo, vhi, vlo, engine="sample"))
+    del khi, klo, vhi, vlo
+    r, err = k1_against_plain(calls, f"the main path's shapes, a {n:,}-row sort")
+    log("no single PyTorch call computes a stable multi-region run scatter")
+    return r["ms"], r["plain_ms"], r["bound_ms"], err
+
+
+def record_k1(call):
+    """The K1 wrapper calls one ``call()`` makes: [(ops, bounds, kw)]."""
     calls = []
     real = extract.bucket_extract
 
@@ -341,39 +375,42 @@ def kernel_at_main_shapes(gen):
 
     extract.bucket_extract = recorder
     try:
-        pallas_sort.sort_pairs_limbs(khi, klo, vhi, vlo, engine="sample")
+        call()
     finally:
         extract.bucket_extract = real
-    del khi, klo, vhi, vlo
+    return calls
+
+
+def k1_against_plain(calls, what):
+    """K1 against its plain version on recorded calls, bit-exact, and timed
+    in turns beside its bound: ((kernel, plain, bound) ms summed over the
+    calls, max abs err)."""
     total_k = total_p = total_b = 0.0
     pairs = []
     for ops, bounds, kw in calls:
-        got, gc = real(ops, bounds, **kw)
+        got, gc = extract.bucket_extract(ops, bounds, **kw)
         ref, rc = extract.bucket_extract_plain(ops, bounds, **kw)
         check(torch.equal(gc, rc) and all(torch.equal(g, r) for g, r in zip(got, ref)),
-              "kernel differs from plain at the main path's shapes")
+              f"K1 differs from plain at the {what} shapes")
         pairs += [(gc, rc)] + list(zip(got, ref))
         del got, ref
-        mk, mp, _ = interleaved_ms(lambda: real(ops, bounds, **kw),
+        mk, mp, _ = interleaved_ms(lambda: extract.bucket_extract(ops, bounds, **kw),
                                    lambda: extract.bucket_extract_plain(ops, bounds, **kw))
-        total_k += mk
-        total_p += mp
         moved = int(torch.clamp(rc, max=kw["cap_rows"] * 128).sum())
         out_words = kw["nbuckets"] * kw["K"] * kw["cap_rows"] * 128
         # the least bytes: each moved word read once, each output word
         # written once, the bounds read and the counts written
-        bound = (len(ops) * 4 * (moved + out_words) + 4 * bounds.numel()
-                 + 4 * rc.numel()) / HBM_BYTES_PER_MS
-        total_b += bound
         nbytes = len(ops) * 4 * (moved + out_words)
-        log(f"kernel K={kw['K']} nbuckets={kw['nbuckets']} cpb={kw['chunks_per_bucket']} "
-            f"ops={len(ops)} words/op={ops[0].numel():,}: kernel {mk:.3f} ms "
-            f"({nbytes / mk / 1e6:.0f} GB/s of read+write), plain {mp:.3f} ms, "
-            f"bound {bound:.3f} ms")
-    log(f"kernel per {n:,}-row sort ({len(calls)} calls): {total_k:.3f} ms, "
-        f"plain {total_p:.3f} ms, bound {total_b:.3f} ms; no single PyTorch call "
-        f"computes a stable multi-region run scatter")
-    return total_k, total_p, total_b, max_abs_err(pairs)
+        bound = (nbytes + 4 * bounds.numel() + 4 * rc.numel()) / HBM_BYTES_PER_MS
+        total_k, total_p, total_b = total_k + mk, total_p + mp, total_b + bound
+        log(f"K1 at {what}: K={kw['K']} nbuckets={kw['nbuckets']} "
+            f"cpb={kw['chunks_per_bucket']} ops={len(ops)} words/op={ops[0].numel():,}: "
+            f"kernel {mk:.3f} ms ({nbytes / mk / 1e6:.0f} GB/s of read+write), "
+            f"plain {mp:.3f} ms, bound {bound:.3f} ms")
+    log(f"K1 per {what} call ({len(calls)} calls): {total_k:.3f} ms, plain {total_p:.3f} ms, "
+        f"bound {total_b:.3f} ms")
+    return {"calls": len(calls), "ms": total_k, "plain_ms": total_p,
+            "bound_ms": total_b}, max_abs_err(pairs)
 
 
 def interleaved_ms(kernel, plain, library=None):
@@ -582,9 +619,12 @@ def _bits(t):
 
 
 def tpch_sf10(gen):
-    """ORDERS, LINEITEM and CUSTOMER columns of TPC-H (specification v3,
-    4.2.3) at scale factor 10, made on the card from ``gen``; rows in
-    random order, so neither join side arrives sorted."""
+    """ORDERS, LINEITEM, CUSTOMER, PART and PARTSUPP columns of TPC-H
+    (specification v3, 4.2.3) at scale factor 10, made on the card from
+    ``gen``; rows in random order, so neither join side arrives sorted.
+    Dates are int32 days since 1970-01-01; flags are uint8 character codes;
+    P_BRAND, P_TYPE and P_SIZE are int32 codes (Brand#MN -> 5(M-1) + N-1,
+    a type's syllables (6, 5, 5) -> 25 s1 + 5 s2 + s3)."""
     n_orders, n_customers = SF10_ORDERS, SF10_CUSTOMERS
     i = torch.arange(n_orders, dtype=torch.int64, device=DEV)
     orderkey = (i // 8) * 32 + i % 8 + 1  # sparse keys: 8 of every 32 used
@@ -602,7 +642,53 @@ def tpch_sf10(gen):
     o_perm = torch.randperm(n_orders, generator=gen, device=DEV)
     l_perm = torch.randperm(n_li, generator=gen, device=DEV)
     c_perm = torch.randperm(n_customers, generator=gen, device=DEV)
+
+    # the GROUP BY / ORDER BY columns, drawn after the join's so those stay
+    def draw(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=DEV)
+
+    orderdate = draw(STARTDATE, ENDDATE - 151 + 1, n_orders).to(torch.int32)
+    order_of = torch.repeat_interleave(torch.arange(n_orders, device=DEV), per_order)
+    first_li = torch.cumsum(per_order, 0) - per_order
+    linenumber = (torch.arange(n_li, device=DEV) - first_li[order_of] + 1).to(torch.int32)
+    shipdate = orderdate[order_of] + draw(1, 122, n_li).to(torch.int32)
+    receiptdate = shipdate + draw(1, 31, n_li).to(torch.int32)
+    del order_of, first_li
+    returned = torch.where(draw(0, 2, n_li) == 0, ord("R"), ord("A"))
+    returnflag = torch.where(receiptdate <= CURRENTDATE, returned, ord("N")).to(torch.uint8)
+    linestatus = torch.where(shipdate > CURRENTDATE, ord("O"), ord("F")).to(torch.uint8)
+    del returned
+    discount = draw(0, 11, n_li).to(torch.float64) / 100
+    tax = draw(0, 9, n_li).to(torch.float64) / 100
+    n_parts, n_supp = SF10_PARTS, SF10_SUPPLIERS
+    p_brand = (draw(0, 5, n_parts) * 5 + draw(0, 5, n_parts)).to(torch.int32)
+    p_type = draw(0, 150, n_parts).to(torch.int32)
+    p_size = draw(1, 51, n_parts).to(torch.int32)
+    # PARTSUPP: 4 suppliers per part, PS_SUPPKEY by the 4.2.3 formula
+    ps_partkey = torch.arange(1, n_parts + 1, device=DEV).repeat_interleave(4)
+    j = torch.arange(4, device=DEV).repeat(n_parts)
+    ps_suppkey = (ps_partkey + j * (n_supp // 4 + (ps_partkey - 1) // n_supp)) % n_supp + 1
+    ps_cost = draw(100, 100_001, 4 * n_parts).to(torch.float64) / 100
+    ps_perm = torch.randperm(4 * n_parts, generator=gen, device=DEV)
+    # 5 x SF suppliers whose S_COMMENT holds "Customer ... Complaints" (Q16)
+    complaints = draw(1, n_supp + 1, 5 * n_supp // 10_000).to(torch.int32)
     return {
+        "o_orderdate": orderdate[o_perm],
+        "l_quantity": quantity[l_perm].to(torch.int32),
+        "l_discount": discount[l_perm],
+        "l_tax": tax[l_perm],
+        "l_shipdate": shipdate[l_perm],
+        "l_receiptdate": receiptdate[l_perm],
+        "l_returnflag": returnflag[l_perm],
+        "l_linestatus": linestatus[l_perm],
+        "l_linenumber": linenumber[l_perm],
+        "p_brand": p_brand,
+        "p_type": p_type,
+        "p_size": p_size,
+        "ps_partkey": ps_partkey[ps_perm].to(torch.int32),
+        "ps_suppkey": ps_suppkey[ps_perm].to(torch.int32),
+        "ps_supplycost": ps_cost[ps_perm],
+        "s_complaints": complaints,
         "o_orderkey": orderkey[o_perm].to(torch.int32).view(torch.uint32),
         "o_custkey": custkey[o_perm],
         "o_custkey32": custkey[o_perm].to(torch.int32),
@@ -751,22 +837,11 @@ def profile_wrappers(gen):
     what surrounds it) of J1, J2 and R."""
     n = MAIN_ROWS[0]
     rows = (*dist.key_uniform_limbs(gen, n), *dist.key_uniform_limbs(gen, n))
-    calls = []
-    real = extract.bucket_extract
-
-    def rec_k1(ops, bounds, **kw):
-        calls.append((ops, bounds, kw))
-        return real(ops, bounds, **kw)
-
-    extract.bucket_extract = rec_k1
-    try:
-        pallas_sort.sort_pairs_limbs(*rows, engine="sample")
-    finally:
-        extract.bucket_extract = real
+    calls = record_k1(lambda: pallas_sort.sort_pairs_limbs(*rows, engine="sample"))
     del rows
     for ops, bounds, kw in calls:
         log_pieces(f"K1 wrapper K={kw['K']} nbuckets={kw['nbuckets']} ops={len(ops)}",
-                   lambda: real(ops, bounds, **kw))
+                   lambda: extract.bucket_extract(ops, bounds, **kw))
     del calls
     work = join_path(gen)
     from radix_sort_tpu_torch.ops import query
@@ -907,6 +982,412 @@ def expand_at_join_shapes(work):
     return rows, max_abs_err(pairs)
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+U32, U64 = 2.0**-24, 2.0**-53  # unit roundoff of float32 and float64
+
+
+def exact_sums(x, inv, groups):
+    """Per-group sums of ``x`` as near-exact float64 (torch calls only):
+    each value splits into a multiple of 2**-20, summed exactly in int64,
+    and a remainder below 2**-21, summed in float64. Exact to a few float64
+    ULP of the sum while the sum of |x| stays below 2**43."""
+    x = x.to(torch.float64)
+    q = torch.round(x * 2.0**20)
+    lo = x - q / 2.0**20
+    s = torch.zeros(groups, dtype=torch.int64, device=DEV).index_add_(0, inv, q.to(torch.int64))
+    return s.to(torch.float64) / 2.0**20 + torch.zeros(
+        groups, dtype=torch.float64, device=DEV).index_add_(0, inv, lo)
+
+
+def float_checks(kind, got, x, inv, cnt, u):
+    """``got`` (sum, mean, var or std per group, rows [0, groups)) against
+    the exact statistic of ``x``, within the worst case of recursive
+    summation in any order: (n_g - 1) u sum|x| for a sum; that over n_g,
+    plus the division's rounding, for a mean; for the two-pass var,
+    (n_g + 3) u sum (x - m)^2 / n_g plus the mean's error squared; for std,
+    var's bound over sqrt(var). A few float64 ULP of slack cover the
+    oracle's own rounding. Returns the largest share of its bound any
+    group used."""
+    g = cnt.shape[0]
+    n = cnt.to(torch.float64)
+    s = exact_sums(x, inv, g)
+    a = torch.zeros(g, dtype=torch.float64, device=DEV).index_add_(
+        0, inv, x.to(torch.float64).abs())
+    slack = 8 * U64 * a
+    b_sum = (n - 1) * u * a + slack
+    mean = s / n
+    b_mean = b_sum / n + 2 * u * mean.abs() + slack / n
+    if kind in ("sum", "mean"):
+        want, bound = (s, b_sum) if kind == "sum" else (mean, b_mean)
+    else:
+        d = x.to(torch.float64) - mean[inv]
+        s2 = exact_sums(d * d, inv, g)
+        var = s2 / n
+        b_var = (n + 3) * u * s2 / n + b_mean**2 + 2 * u * var + 8 * U64 * s2
+        if kind == "var":
+            want, bound = var, b_var
+        else:
+            want = var.sqrt()
+            bound = b_var / torch.maximum(want, b_var.sqrt()) + 2 * u * want
+    err = (got[:g].to(torch.float64) - want).abs()
+    check(bool((err <= bound).all()), f"{kind}: |got - exact| above its bound")
+    return float((err / bound).max())
+
+
+def check_exact(got, want, label):
+    """Rows [0, len(want)) of ``got`` bit for bit, dtype included."""
+    check(got.dtype == want.dtype, f"{label}: dtype {got.dtype} != {want.dtype}")
+    check(torch.equal(_bits(got[:want.shape[0]]), _bits(want)), f"{label}: values")
+
+
+def groups_of(cols):
+    """(unique int64 group keys ascending, inverse, counts) of key columns
+    of at most 64 bits together, from torch.unique."""
+    key = torch.zeros_like(cols[0][0], dtype=torch.int64)
+    for c, bits in cols:
+        key = (key << bits) | c.to(torch.int64)
+    return torch.unique(key, return_inverse=True, return_counts=True)
+
+
+def q1_inputs(t):
+    """Q1's rows: the filter on the ship date, sliced to its count, and the
+    derived price columns (TPC-H 2.4.1)."""
+    *c, cnt = rst.filter(t["l_shipdate"] <= Q1_SHIPDATE, t["l_returnflag"], t["l_linestatus"],
+                         t["l_quantity"], t["l_extendedprice"], t["l_discount"], t["l_tax"])
+    k = int(cnt)
+    rf, ls, qty, price, disc, tax = (x[:k] for x in c)
+    disc_price = price * (1 - disc)
+    return rf, ls, qty, price, disc, tax, disc_price, disc_price * (1 + tax)
+
+
+Q1_AGGS = ["sum", "sum", "sum", "sum", "mean", "mean", "mean", "count"]
+
+
+def q1(t):
+    rf, ls, qty, price, disc, _, disc_price, charge = q1_inputs(t)
+    return rst.hash_aggregate([rf, ls], [qty, price, disc_price, charge, qty, price, disc, qty],
+                              Q1_AGGS)
+
+
+def check_q1(t, got):
+    m = t["l_shipdate"] <= Q1_SHIPDATE
+    rf, ls, qty, price, disc, tax = (t[k][m] for k in (
+        "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    disc_price = price * (1 - disc)
+    charge = disc_price * (1 + tax)
+    uk, inv, cnt = groups_of([(rf, 8), (ls, 8)])
+    (g_rf, g_ls), aggs, count = got
+    check(int(count) == uk.shape[0], "Q1 group count")
+    check_exact(g_rf, (uk >> 8).to(torch.uint8), "Q1 l_returnflag")
+    check_exact(g_ls, (uk & 255).to(torch.uint8), "Q1 l_linestatus")
+    sum_qty = torch.zeros_like(uk).index_add_(0, inv, qty.to(torch.int64)).to(torch.int32)
+    check_exact(aggs[0], sum_qty, "Q1 sum_qty")
+    check_exact(aggs[4], sum_qty.to(torch.float32) / cnt.to(torch.float32), "Q1 avg_qty")
+    check_exact(aggs[7], cnt.to(torch.int32), "Q1 count_order")
+    shares = [float_checks("sum", aggs[1], price, inv, cnt, U32),
+              float_checks("sum", aggs[2], disc_price, inv, cnt, U64),
+              float_checks("sum", aggs[3], charge, inv, cnt, U64),
+              float_checks("mean", aggs[5], price, inv, cnt, U32),
+              float_checks("mean", aggs[6], disc, inv, cnt, U64)]
+    return f"{uk.shape[0]} groups; float aggregates use at most {max(shares):.2e} of their bound"
+
+
+def q18(t):
+    """Q18's subquery, SUM(l_quantity) GROUP BY l_orderkey HAVING > 300, and
+    the ORDER BY o_totalprice DESC, o_orderdate LIMIT 100 over the orders
+    it keeps (a lookup join on the unique o_orderkey)."""
+    uk, sums, cnt = rst.hash_aggregate(t["l_orderkey"], t["l_quantity"], "sum")
+    g = int(cnt)
+    keys, big, nb = rst.filter(sums[:g] > 300, uk[:g], sums[:g])
+    nb = int(nb)
+    ok, s, (tp, od), c, _ = rst.hash_join(keys[:nb], big[:nb], t["o_orderkey"],
+                                          [t["o_totalprice"], t["o_orderdate"]],
+                                          capacity=nb, how="lookup")
+    c = int(c)
+    return rst.top_k([tp[:c], -od[:c]], min(100, c), ok[:c], s[:c])
+
+
+def check_q18(t, got):
+    lk = _rank(t["l_orderkey"])
+    uk, inv = torch.unique(lk, return_inverse=True)
+    sums = torch.zeros_like(uk).index_add_(0, inv, t["l_quantity"].to(torch.int64))
+    keep = sums > 300
+    kk, ks = uk[keep], sums[keep]
+    o_sorted, o_idx = torch.sort(_rank(t["o_orderkey"]))
+    pos = o_idx[torch.searchsorted(o_sorted, kk)]
+    check(torch.equal(o_sorted[torch.searchsorted(o_sorted, kk)], kk), "Q18: every key an order")
+    tp, od = t["o_totalprice"][pos], t["o_orderdate"][pos]
+    perm = torch.sort(od, stable=True).indices  # rows are in key order already
+    perm = perm[torch.sort(tp[perm], stable=True, descending=True).indices][:100]
+    (g_tp, g_od), g_key, g_sum = got
+    check_exact(g_tp, tp[perm], "Q18 o_totalprice")
+    check_exact(g_od, -od[perm], "Q18 -o_orderdate")
+    check_exact(g_key, kk[perm].to(torch.int32).view(torch.uint32), "Q18 o_orderkey")
+    check_exact(g_sum, ks[perm].to(torch.int32), "Q18 sum(l_quantity)")
+    check(g_tp.shape[0] == min(100, kk.shape[0]), "Q18 row count")
+    return f"{kk.shape[0]:,} orders above 300 of {uk.shape[0]:,}; top {g_tp.shape[0]}"
+
+
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+BRAND_45 = 3 * 5 + 4  # Brand#45
+MEDIUM_POLISHED = 2 * 5 + 3  # P_TYPE's first two syllables MEDIUM POLISHED
+
+
+def q16_inputs(t):
+    """PARTSUPP joined to PART on the dense part key (a gather), and Q16's
+    predicate (2.4.16)."""
+    p = t["ps_partkey"].to(torch.int64) - 1
+    brand, ptype, size = t["p_brand"][p], t["p_type"][p], t["p_size"][p]
+    sizes = torch.tensor(Q16_SIZES, dtype=torch.int32, device=DEV)
+    mask = ((brand != BRAND_45) & (ptype // 5 != MEDIUM_POLISHED) & torch.isin(size, sizes)
+            & ~torch.isin(t["ps_suppkey"], t["s_complaints"]))
+    return mask, brand, ptype, size, t["ps_suppkey"], t["ps_supplycost"]
+
+
+def q16(t, inputs):
+    mask, *cols = inputs
+    *c, cnt = rst.filter(mask, *cols)
+    k = int(cnt)
+    brand, ptype, size, supp, cost = (x[:k] for x in c)
+    return rst.hash_aggregate([brand, ptype, size], [supp, cost], ["count_distinct", "median"])
+
+
+def check_q16(inputs, got):
+    mask, brand, ptype, size, supp, cost = inputs
+    brand, ptype, size, supp, cost = (x[mask] for x in (brand, ptype, size, supp, cost))
+    uk, inv, cnt = groups_of([(brand, 8), (ptype, 8), (size - 1, 8)])
+    g = uk.shape[0]
+    (g_b, g_t, g_s), (g_cd, g_med), count = got
+    check(int(count) == g, "Q16 group count")
+    check_exact(g_b, (uk >> 16).to(torch.int32), "Q16 p_brand")
+    check_exact(g_t, ((uk >> 8) & 255).to(torch.int32), "Q16 p_type")
+    check_exact(g_s, (uk & 255).to(torch.int32) + 1, "Q16 p_size")
+    pairs = torch.unique(inv * (SF10_SUPPLIERS + 1) + supp.to(torch.int64))
+    cd = torch.zeros(g, dtype=torch.int64, device=DEV).index_add_(
+        0, pairs // (SF10_SUPPLIERS + 1), torch.ones_like(pairs))
+    check_exact(g_cd, cd.to(torch.int32), "Q16 count(distinct ps_suppkey)")
+    order = torch.sort(cost, stable=True).indices
+    order = order[torch.sort(inv[order], stable=True).indices]
+    starts = torch.cumsum(cnt, 0) - cnt
+    check_exact(g_med, cost[order][starts + (cnt - 1) // 2], "Q16 median(ps_supplycost)")
+    return f"{mask.sum().item():,} rows pass the predicate, {g:,} groups"
+
+
+LEVEL_AGGS = ["sum", "count", "min", "max", "var"]
+
+
+def q1_rollup(rows):
+    rf, ls, qty, price, disc, tax = rows[:6]
+    return rst.hash_aggregate_levels([rf, ls], [price, qty, disc, tax, qty], LEVEL_AGGS,
+                                     [2, 1, 0])
+
+
+def check_rollup(rows, got):
+    rf, ls, qty, price, disc, tax = rows[:6]
+    shares = []
+    for c, (keys, aggs, count) in zip((2, 1, 0), got):
+        cols = [(rf, 8), (ls, 8)][:c] or [(torch.zeros_like(rf), 8)]
+        uk, inv, cnt = groups_of(cols)
+        g = uk.shape[0]
+        check(int(count) == g and len(keys) == c, f"ROLLUP level {c}: groups")
+        if c >= 1:
+            check_exact(keys[0], (uk >> (8 * (c - 1))).to(torch.uint8), f"level {c} flag")
+        if c == 2:
+            check_exact(keys[1], (uk & 255).to(torch.uint8), f"level {c} status")
+        check_exact(aggs[1], cnt.to(torch.int32), f"level {c} count")
+        for i, (x, op) in ((2, (disc, "amin")), (3, (tax, "amax"))):
+            want = torch.zeros(g, dtype=x.dtype, device=DEV).scatter_reduce_(
+                0, inv, x, op, include_self=False)
+            check_exact(aggs[i], want, f"level {c} {op}")
+        shares += [float_checks("sum", aggs[0], price, inv, cnt, U32),
+                   float_checks("var", aggs[4], qty, inv, cnt, U32)]
+    return f"levels (2, 1, 0); float aggregates use at most {max(shares):.2e} of their bound"
+
+
+A5_AGGS = ["first", "last", "mode", "argmin", "argmax", "any", "all", "std", "quantile:0.9",
+           "quantile_cont:0.9"]
+
+
+def a5_values(t):
+    return [t["l_extendedprice"], t["l_shipdate"], t["l_quantity"], t["l_discount"],
+            t["l_tax"], t["l_discount"], t["l_tax"], t["l_extendedprice"], t["l_quantity"],
+            t["l_extendedprice"]]
+
+
+def a5(t):
+    return rst.hash_aggregate(t["l_orderkey"], a5_values(t), A5_AGGS)
+
+
+def _by_value(key, x):
+    """Rows ordered by (key, x, position): stable sorts, least significant
+    first (x numeric, without NaN)."""
+    order = torch.sort(x, stable=True).indices
+    return order[torch.sort(key[order], stable=True).indices]
+
+
+def check_a5(t, got):
+    key = _rank(t["l_orderkey"])
+    n = key.shape[0]
+    pos = torch.arange(n, device=DEV)
+    uk, inv, cnt = torch.unique(key, return_inverse=True, return_counts=True)
+    g = uk.shape[0]
+    starts = torch.cumsum(cnt, 0) - cnt
+    ends = starts + cnt - 1
+    g_keys, aggs, count = got
+    check(int(count) == g, "A5 group count")
+    check_exact(g_keys, uk.to(torch.int32).view(torch.uint32), "A5 keys")
+    by_key = torch.sort(key, stable=True).indices  # input order inside each group
+    ep, ship, qty = t["l_extendedprice"], t["l_shipdate"], t["l_quantity"]
+    disc, tax = t["l_discount"], t["l_tax"]
+    check_exact(aggs[0], ep[by_key[starts]], "A5 first")
+    check_exact(aggs[1], ship[by_key[ends]], "A5 last")
+    # mode: the longest (key, qty) run, ties to the smallest qty
+    o = _by_value(key, qty)
+    kq = key[o] * 64 + qty[o]
+    runs, rcnt = torch.unique_consecutive(kq, return_counts=True)
+    r_key, r_qty = runs // 64, runs % 64
+    r_gid = torch.searchsorted(uk, r_key)
+    s = torch.sort(r_qty, stable=True).indices
+    s = s[torch.sort(-rcnt[s], stable=True).indices]
+    s = s[torch.sort(r_gid[s], stable=True).indices]
+    first_run = torch.cat([torch.ones(1, dtype=torch.bool, device=DEV),
+                           r_gid[s][1:] != r_gid[s][:-1]])
+    check_exact(aggs[2], r_qty[s][first_run].to(torch.int32), "A5 mode")
+    check_exact(aggs[3], pos[_by_value(key, disc)][starts].to(torch.int32), "A5 argmin")
+    check_exact(aggs[4], pos[_by_value(key, -tax)][starts].to(torch.int32), "A5 argmax")
+    nz = lambda x: torch.zeros_like(uk).index_add_(0, inv, (x != 0).to(torch.int64))  # noqa: E731
+    check_exact(aggs[5], nz(disc) > 0, "A5 any")
+    check_exact(aggs[6], nz(tax) == cnt, "A5 all")
+    share = float_checks("std", aggs[7], ep, inv, cnt, U32)
+    span = cnt - 1
+    q_off = torch.floor(span.to(torch.float32) * 0.9 + 1e-6).to(torch.int64)
+    check_exact(aggs[8], qty[o][starts + q_off], "A5 quantile:0.9")
+    se = ep[_by_value(key, ep)].to(torch.float64)
+    r = span.to(torch.float64) * 0.9
+    lo = torch.floor(r + 1e-6).to(torch.int64).clamp(min=0)
+    lo = torch.minimum(lo, span)
+    hi = torch.minimum(lo + 1, span)
+    frac = (r - lo.to(torch.float64)).clamp(0.0, 1.0)
+    vlo, vhi = se[starts + lo], se[starts + hi]
+    want = vlo + frac * (vhi - vlo)
+    err = (aggs[9][:g] - want).abs()
+    tol = 4 * U64 * torch.maximum(vlo.abs(), vhi.abs())  # 4 float64 ULP of the larger bracket
+    check(aggs[9].dtype == torch.float64 and bool((err <= tol).all()), "A5 quantile_cont:0.9")
+    return (f"{g:,} groups; std uses at most {share:.2e} of its bound; quantile_cont "
+            f"max |err| {float(err.max()):.3g}")
+
+
+def lexsort_o1(t):
+    return rst.lexsort([t["l_shipdate"], t["l_orderkey"], t["l_linenumber"]],
+                       implementation="pallas")
+
+
+def check_o1(t, got):
+    p = torch.sort(t["l_linenumber"], stable=True).indices
+    p = p[torch.sort(_rank(t["l_orderkey"])[p], stable=True).indices]
+    p = p[torch.sort(t["l_shipdate"][p], stable=True).indices]
+    check_exact(got, p, "O1 permutation")
+    return f"{got.shape[0]:,} rows, permutation bit-exact"
+
+
+def _u64_rank(x):
+    return x.view(torch.int64) ^ -(1 << 63)
+
+
+def check_o2(hi, lo, v, got):
+    (g_hi, g_lo), g_v = got
+    p = torch.sort(_u64_rank(lo), stable=True).indices
+    p = p[torch.sort(_u64_rank(hi)[p], stable=True).indices]
+    # gathered as their signed views: CUDA indexing has no unsigned kernels
+    check_exact(g_hi, _bits(hi)[p].view(hi.dtype), "O2 hi")
+    check_exact(g_lo, _bits(lo)[p].view(lo.dtype), "O2 lo")
+    check_exact(g_v, _bits(v)[p].view(v.dtype), "O2 payload")
+    return f"{hi.shape[0]:,} rows, keys and payload bit-exact"
+
+
+def groupby_path(t):
+    """A1-A5 at TPC-H SF10 through the public API, each checked once against
+    its torch oracle. Returns the workloads (label -> (call, rows in))."""
+    rows = q1_inputs(t)
+    q16_in = q16_inputs(t)
+    n_li, n_o = t["l_orderkey"].shape[0], t["o_orderkey"].shape[0]
+    work = {
+        "A1 Q1: filter(l_shipdate), one multi-aggregate by (returnflag, linestatus)":
+            (lambda: q1(t), lambda got: check_q1(t, got), n_li),
+        "A2 Q18: sum(l_quantity) by l_orderkey, HAVING > 300, top_k 100 of its orders":
+            (lambda: q18(t), lambda got: check_q18(t, got), n_li + n_o),
+        "A3 Q16: count(distinct ps_suppkey), median(ps_supplycost) by brand, type, size":
+            (lambda: q16(t, q16_in), lambda got: check_q16(q16_in, got),
+             t["ps_partkey"].shape[0]),
+        "A4 ROLLUP(returnflag, linestatus) over Q1's rows: sum, count, min, max, var":
+            (lambda: q1_rollup(rows), lambda got: check_rollup(rows, got), rows[0].shape[0]),
+        "A5 first, last, mode, argmin, argmax, any, all, std, quantile(_cont) by l_orderkey":
+            (lambda: a5(t), lambda got: check_a5(t, got), n_li),
+    }
+    for label, (call, verify, _) in work.items():
+        got = call()
+        torch.cuda.synchronize()
+        log(f"{label.split(':')[0]}: matches the torch oracle; {verify(got)}")
+        del got
+    return {label: (call, rows_in) for label, (call, _, rows_in) in work.items()}
+
+
+def orderby_path(t, gen):
+    """O1 and O2 on the kernel engine, each checked once against a stable
+    torch.sort oracle. Returns the workloads."""
+    hi = dist.key_uniform(gen, O2_ROWS, torch.uint64)
+    lo = dist.key_uniform(gen, O2_ROWS, torch.uint64)
+    v = torch.arange(O2_ROWS, dtype=torch.int32, device=DEV).view(torch.uint32)
+    work = {
+        "O1 lexsort([l_shipdate, l_orderkey, l_linenumber]), pallas":
+            (lambda: lexsort_o1(t), lambda got: check_o1(t, got), t["l_orderkey"].shape[0]),
+        "O2 sort_pairs128 of uniform (u64, u64) keys, u32 payload, pallas":
+            (lambda: rst.sort_pairs128(hi, lo, v, implementation="pallas"),
+             lambda got: check_o2(hi, lo, v, got), O2_ROWS),
+    }
+    for label, (call, verify, _) in work.items():
+        f0 = sample_sort.FALLBACKS
+        got = call()
+        torch.cuda.synchronize()
+        check(sample_sort.FALLBACKS == f0, f"{label}: the sample sort fell back")
+        log(f"{label.split()[0]}: matches the torch oracle; {verify(got)}")
+        del got
+    return {label: (call, rows_in) for label, (call, _, rows_in) in work.items()}
+
+
+def time_workloads(work):
+    """Warm wall time (CUDA events, median of 5), peak memory above the
+    inputs and the top device costs (torch.profiler) of each workload."""
+    out = {}
+    for label, (call, rows_in) in work.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res
+        ts = timing.cuda_time_ms(call, runs=5)
+        ms = median(ts)
+        kernels = device_kernels(call)
+        busy = sum(us for us, _ in kernels)
+        name = label.split()[0]
+        out[name] = {"ms": ms, "busy_ms": busy / 1e3, "peak_gib": peak / 2**30}
+        log(f"{name}: median {ms:.3f} ms of {[round(x, 3) for x in ts]}; "
+            f"{rows_in / ms / 1e3:.1f} M input rows/s; peak allocated {peak / 2**30:.2f} GiB "
+            f"above the inputs; device busy "
+            + (f"{busy / 1e3:.3f} ms in {len(kernels)} kernels" if busy else
+               "not measured (the profiler showed no device time)"))
+        if busy:
+            log(f"{name} top device costs: " + "; ".join(
+                f"{k[:60]} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)"
+                for us, k in kernels[:5]))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
@@ -948,20 +1429,43 @@ def main():
     k2_rows, k2_err2 = expand_at_join_shapes(work)
     del work
     profile_wrappers(gen)
+
+    # GROUP BY and ORDER BY at TPC-H SF10 (phase 8)
+    t = tpch_sf10(gen)
+    log(f"TPC-H SF10 for GROUP BY / ORDER BY: {t['l_orderkey'].shape[0]:,} lineitems, "
+        f"{t['o_orderkey'].shape[0]:,} orders, {t['p_brand'].shape[0]:,} parts, "
+        f"{t['ps_partkey'].shape[0]:,} partsupp rows")
+    agg_work = groupby_path(t)
+    time_workloads(agg_work)
+    del agg_work
+    extract.LAUNCHES = 0
+    ob_work = orderby_path(t, gen)
+    k1_orderby = extract.LAUNCHES
+    check(k1_orderby > 0, "the ORDER BY path never launched the extract kernel")
+    log(f"ORDER BY path: extract kernel calls {k1_orderby}")
+    time_workloads(ob_work)
+    k1_ob, k1_ob_err = {}, 0
+    for label, (call, _) in ob_work.items():
+        name = label.split()[0]
+        k1_ob[name], e = k1_against_plain(record_k1(call), name)
+        k1_ob_err = max(k1_ob_err, e)
+    del ob_work, t
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/extract.cu",
         "replaces": "radix_sort_tpu/ops/extract.py:310",
-        "launches": k1_launches,
-        "max_abs_err": max(err, err2),
+        "launches": k1_launches + k1_orderby,
+        "launches_by_path": {"sort": k1_launches, "order_by": k1_orderby},
+        "max_abs_err": max(err, err2, k1_ob_err),
         "ms": k1_ms,
         "plain_ms": k1_plain,
         "bound_ms": k1_bound,
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call computes a stable multi-region run scatter
         "shape": f"the calls of one {MAIN_ROWS[0]:,}-row (u64,u64) sort, summed",
+        "order_by": k1_ob,  # the calls of one O1 / O2 call, summed, same keys
     }, {
         "name": "expand_join_runs",
         "route": "cuda",

@@ -2,31 +2,52 @@
 
 The counterpart of ``radix_sort_tpu`` (the JAX package, which stays the
 reference) for one NVIDIA H100. It mirrors that package's module names.
-It ports the sort (key transforms, the public sort API, and the
+It ports the sort (key transforms, the public sort API with
+``lexsort``, ``sort_segments``, ``top_k`` and the 128-bit trio, and the
 sample-sort engine whose data movement is a CUDA kernel written for Hopper,
-``csrc/extract.cu``) and the join slice of the query operators (``filter``,
+``csrc/extract.cu``), the join slice of the query operators (``filter``,
 ``searchsorted``, ``unique``, ``hash_join``, ``repeat``, whose expansion is
-a second such kernel, ``csrc/expand.cu``); the kernels are built at first
-use. Aggregation, band joins, tables, SQL and the multi-device layer are
-not ported yet (ROADMAP.md).
+a second such kernel, ``csrc/expand.cu``), the GROUP BY family
+(``hash_aggregate`` with every aggregation, multi-aggregates and ROLLUP
+levels) and the relational completions (``join_asof``, set operators,
+``quantiles``); the kernels are built at first use. Band joins, windows,
+tables, SQL and the multi-device layer are not ported yet (ROADMAP.md).
 """
 
 from radix_sort_tpu_torch import config, keys
 from radix_sort_tpu_torch.ops.query import (
+    AGGREGATIONS,
+    COMBINABLE_AGGREGATIONS,
     JOIN_HOWS,
     filter,
+    hash_aggregate,
+    hash_aggregate_levels,
     hash_join,
     repeat,
     searchsorted,
     unique,
 )
+from radix_sort_tpu_torch.ops.relational import (
+    ASOF_DIRECTIONS,
+    join_asof,
+    quantiles,
+    set_difference,
+    set_intersect,
+    set_union,
+)
 from radix_sort_tpu_torch.ops.sort import (
     IMPLEMENTATIONS,
     argsort,
+    argsort128,
     counting_sort,
+    lexsort,
     sort,
+    sort128,
     sort_limbs,
     sort_pairs,
+    sort_pairs128,
+    sort_segments,
+    top_k,
 )
 
 __version__ = "0.1.0"
@@ -38,13 +59,29 @@ __all__ = [
     "argsort",
     "sort_pairs",
     "sort_limbs",
+    "lexsort",
+    "top_k",
+    "sort_segments",
+    "sort128",
+    "argsort128",
+    "sort_pairs128",
     "counting_sort",
-    "IMPLEMENTATIONS",
     "filter",
+    "hash_aggregate",
+    "hash_aggregate_levels",
     "hash_join",
     "repeat",
-    "searchsorted",
     "unique",
+    "searchsorted",
+    "join_asof",
+    "set_union",
+    "set_intersect",
+    "set_difference",
+    "quantiles",
+    "ASOF_DIRECTIONS",
+    "AGGREGATIONS",
+    "COMBINABLE_AGGREGATIONS",
     "JOIN_HOWS",
+    "IMPLEMENTATIONS",
     "__version__",
 ]

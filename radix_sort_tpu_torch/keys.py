@@ -39,6 +39,8 @@ __all__ = [
     "num_limbs",
     "widen_limb",
     "narrow_limb",
+    "encode128",
+    "decode128",
     "SUPPORTED_DTYPES",
 ]
 
@@ -150,6 +152,33 @@ def narrow_limb(limb: torch.Tensor, sdt: torch.dtype) -> torch.Tensor:
     if bits == 32:
         return limb
     return ((limb ^ _INT32_MIN) + _min(bits)).to(sdt)
+
+
+def encode128(hi: torch.Tensor, lo: torch.Tensor, *, signed: bool = False):
+    """128-bit keys held as (hi, lo) 64-bit words -> 4 big-endian int32 rank
+    limbs for :func:`radix_sort_tpu_torch.sort_limbs`.
+
+    The reference's u128/i128 key types (radix_digits.rs:37-53, 87-93).
+    ``hi`` is uint64, or int64 when ``signed`` (i128): the sign flip of the
+    whole 128-bit value is the sign flip :func:`encode` gives the high word.
+    ``lo`` is always the unsigned uint64 low word.
+    """
+    if signed:
+        if hi.dtype != torch.int64:
+            raise TypeError(f"signed=True needs an int64 hi word, got {hi.dtype}")
+    elif hi.dtype != torch.uint64:
+        raise TypeError(f"signed=False needs a uint64 hi word, got {hi.dtype}")
+    if lo.dtype != torch.uint64:
+        raise TypeError(f"lo must be uint64 (the unsigned low word), got {lo.dtype}")
+    return [*split64(encode(hi)), *split64(encode(lo))]
+
+
+def decode128(limbs, *, signed: bool = False):
+    """Inverse of :func:`encode128`: 4 big-endian int32 limbs -> (hi, lo)
+    64-bit words (hi is int64 when ``signed``, else uint64)."""
+    w0, w1, w2, w3 = limbs
+    hi = decode(merge64(w0, w1), torch.int64 if signed else torch.uint64)
+    return hi, decode(merge64(w2, w3), torch.uint64)
 
 
 def encode_limbs(col: torch.Tensor):

@@ -1,9 +1,9 @@
-"""Vectorized query operators: filter, searchsorted, unique, hash_join, repeat.
+"""Vectorized query operators: filter, searchsorted, unique, hash_join,
+repeat, and the aggregation family (hash_aggregate and its levels).
 
-Counterpart of ``radix_sort_tpu/ops/query.py`` (the join slice; the
-aggregation family and band joins are not ported yet, ROADMAP.md). The
-names are the JAX package's, so each function's counterpart is found by
-name. Outputs are bit-identical to the reference's:
+Counterpart of ``radix_sort_tpu/ops/query.py`` (everything but band joins,
+ROADMAP.md). The names are the JAX package's, so each function's
+counterpart is found by name. Outputs are bit-identical to the reference's:
 
   - ``filter``: predicate compaction as a stable 1-bit partition; kept rows
     keep their order, the result is the valid prefix plus a count.
@@ -12,6 +12,12 @@ name. Outputs are bit-identical to the reference's:
     expand into a static-capacity output (+ overflow flag) through kernel
     K2 (``ops/expand.py``).
   - ``repeat``: ``np.repeat`` into a static-size output (UNNEST), on K2.
+  - ``hash_aggregate``: GROUP BY as a stable sort by key, group-boundary
+    marks, and segment reductions: scatter-adds and scatter min/max per
+    group id, or differences of running sums compacted at group ends.
+    ``hash_aggregate_levels`` serves every ROLLUP level from one sort.
+    Float sums are exact only to ULP(group sum): their summation order is
+    the scatter's.
 
 All outputs are (padded tensors..., count[, overflow]), with count and
 overflow as 0-dim tensors on the input's device: slicing the first
@@ -20,9 +26,10 @@ overflow as 0-dim tensors on the input's device: slicing the first
 Key words are the port's signed int32 rank limbs (``keys.encode_limbs``),
 the reference's unsigned limbs with the sign bit flipped: where the
 reference zeroes a key limb, the port writes :data:`ZERO_LIMB`, so decoded
-key columns match bit for bit. Running sums are taken in int64; the count
-and overflow flag come out as the reference's int32 sums with their
-wraparound guard give them.
+key columns match bit for bit. Join running sums are taken in int64; the
+count and overflow flag come out as the reference's int32 sums with their
+wraparound guard give them. Aggregate running sums keep the value's width
+and wrap, as the reference's do.
 """
 
 from __future__ import annotations
@@ -35,16 +42,24 @@ from radix_sort_tpu_torch.ops._cosort import cosort
 from radix_sort_tpu_torch.ops.expand import expand_offsets
 
 __all__ = [
+    "AGGREGATIONS",
+    "COMBINABLE_AGGREGATIONS",
+    "LEVEL_AGGREGATIONS",
     "append_unmatched_right",
     "expand_offsets",
     "filter",
+    "hash_aggregate",
+    "hash_aggregate_levels",
     "hash_join",
     "join_expand",
     "merge_rank",
     "merge_rank_pair",
+    "quantile_is_cont",
+    "quantile_q",
     "repeat",
     "searchsorted",
     "unique",
+    "valid_agg",
     "JOIN_HOWS",
 ]
 
@@ -220,6 +235,477 @@ def filter(mask: torch.Tensor, *arrays: torch.Tensor):
     discard = (~mask).to(torch.int32)
     out = _stable_sort([discard, *arrays], num_keys=1)
     return (*out[1:], mask.sum(dtype=torch.int32))
+
+
+# ------------------------------------------------------------ aggregation
+
+AGGREGATIONS = (
+    "sum", "count", "min", "max", "mean",
+    "any", "all",                 # bool OR / AND over (value != 0)
+    "first", "last",              # group's first/last value in input order
+    "median",                     # lower order statistic (exact)
+    "mode",                       # most frequent value (ties: smallest)
+    "var", "std",                 # population variance / stddev (two-pass)
+    "count_distinct",             # distinct values per group
+    "argmin", "argmax",           # input position of the group min/max
+)
+# "quantile:<q>" (0 <= q <= 1) is accepted anywhere an aggregation name is:
+# the group's lower order statistic at rank floor(q*(len-1)), PERCENTILE_DISC
+# ("quantile:0.5" == "median"). "quantile_cont:<q>" interpolates linearly
+# between the two bracketing order statistics (PERCENTILE_CONT), in float64.
+
+# aggregations whose per-shard partials combine with a plain reduction
+COMBINABLE_AGGREGATIONS = ("sum", "count", "min", "max", "mean", "any", "all")
+# aggregations computable per prefix level from one shared full-key sort
+LEVEL_AGGREGATIONS = ("sum", "count", "mean", "min", "max", "any", "all", "var", "std")
+# the multi-aggregate hands these (and the quantiles) to a single-aggregate
+# call, one sort by (key, value) each
+_DELEGATED = ("median", "count_distinct", "mode", "argmin", "argmax")
+# the single-aggregate call sorts by (key, value) for these; the rest run as
+# one column of the multi-aggregate
+_BY_VALUE = ("min", "max") + _DELEGATED
+
+
+def quantile_q(agg):
+    """The q of a ``"quantile:<q>"`` / ``"quantile_cont:<q>"`` aggregation
+    name, else None."""
+    if isinstance(agg, str) and (agg.startswith("quantile:")
+                                 or agg.startswith("quantile_cont:")):
+        try:
+            q = float(agg.split(":", 1)[1])
+        except ValueError:
+            return None
+        if 0.0 <= q <= 1.0:
+            return q
+    return None
+
+
+def quantile_is_cont(agg):
+    return isinstance(agg, str) and agg.startswith("quantile_cont:")
+
+
+def valid_agg(agg):
+    return agg in AGGREGATIONS or quantile_q(agg) is not None
+
+
+def _check_agg(agg):
+    if not valid_agg(agg):
+        raise ValueError(f"agg must be one of {AGGREGATIONS} or 'quantile:<q>', got {agg!r}")
+
+
+def _mean_dt(dt):
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def _out_dt(agg, dt):
+    """Output dtype of ``agg`` over values of ``dt`` (what an empty input
+    returns: the dtype a non-empty one gives, where the reference returns
+    the value dtype for ``quantile_cont`` and a bool ``sum``; ROADMAP.md)."""
+    if agg in ("count", "count_distinct", "argmin", "argmax"):
+        return torch.int32
+    if agg in ("mean", "var", "std"):
+        return _mean_dt(dt)
+    if agg in ("any", "all"):
+        return torch.bool
+    if quantile_is_cont(agg):
+        return torch.float64
+    if agg == "sum" and dt == torch.bool:
+        return torch.int64
+    return dt
+
+
+def _key_cols(keys):
+    """(columns, is_list, n) of a GROUP BY key operand, validated."""
+    multi = isinstance(keys, (list, tuple))
+    cols = list(keys) if multi else [keys]
+    if not cols:
+        raise ValueError("keys must have at least one column")
+    n = cols[0].shape[0]
+    if any(c.shape[0] != n for c in cols):
+        raise ValueError("all key columns must have equal length")
+    return cols, multi, n
+
+
+def _mark_first(limbs):
+    """True at each row whose limbs differ from the previous row's."""
+    return torch.cat([torch.ones((1,), dtype=torch.bool, device=limbs[0].device),
+                      _limbs_differ([w[1:] for w in limbs], [w[:-1] for w in limbs])])
+
+
+def _mark_last(first):
+    return torch.cat([first[1:], first.new_ones((1,))])
+
+
+def _shift1(c, fill):
+    """``c`` moved one row down with ``fill`` on top (the reference's
+    ``jnp.roll(c, 1).at[0].set(fill)``)."""
+    return torch.cat([torch.full((1,), fill, dtype=c.dtype, device=c.device), c[:-1]])
+
+
+def _diff(c):
+    """Consecutive differences, the first row against 0 (exact under the
+    dtype's wraparound)."""
+    return c - _shift1(c, 0)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, bounds scalar or tensor
+    (a negative tensor bound ``hi`` wins, as in the reference)."""
+    x = torch.maximum(x, lo) if torch.is_tensor(lo) else x.clamp(min=lo)
+    return torch.minimum(x, hi) if torch.is_tensor(hi) else x.clamp(max=hi)
+
+
+def _take(a, idx):
+    """``a[idx]`` for any dtype (unsigned ones gather as their signed view)."""
+    return _signed(a)[idx].view(a.dtype)
+
+
+def _gid(first):
+    """Segment id of every row: the count of run starts up to it, minus 1."""
+    return torch.cumsum(first, 0, dtype=torch.int64) - 1
+
+
+def _run_bounds(first, pos, end=False):
+    """Each row's run start (or end) position, runs starting where ``first``
+    is True: the reference's forward running max (or reversed running min)
+    of the marked positions, as a min (max) per run over run ids. PyTorch's
+    cummin/cummax scan a long 1-D tensor in one row (PERF.md)."""
+    rid = _gid(first)
+    b = torch.zeros_like(pos).scatter_reduce_(0, rid, pos, "amax" if end else "amin",
+                                              include_self=False)
+    return b[rid]
+
+
+def _segsum(x, gid):
+    """``jax.ops.segment_sum(x, gid, num_segments=len(x))``: untouched
+    segments hold 0. A float scatter-add on the card is atomic, so its
+    summation order varies between runs."""
+    return torch.zeros_like(x).index_add_(0, gid, x)
+
+
+def _seg_extreme(w, gid, op):
+    """Segment min or max of rank words; untouched segments hold the
+    reference's identity (its unsigned word's max for min, 0 for max: the
+    signed word's max and min)."""
+    info = torch.iinfo(w.dtype)
+    fill = info.max if op == "min" else info.min
+    return torch.full_like(w, fill).scatter_reduce_(0, gid, w, "a" + op)
+
+
+def _running_sum(x):
+    """``jnp.cumsum`` of integer values: the value's own width, wrapping
+    (bool counts in int64, as the reference under x64). Unsigned values sum
+    as their signed view, the same bits. The returned tensor is that view;
+    :func:`_as_sum` turns a difference of it back."""
+    if x.dtype == torch.bool:
+        return torch.cumsum(x, 0, dtype=torch.int64)
+    s = _signed(x)
+    return torch.cumsum(s, 0, dtype=s.dtype)
+
+
+def _as_sum(d, dt):
+    return d if dt == torch.bool else d.view(dt)
+
+
+def _nonzero(x):
+    return _signed(x) != 0
+
+
+def hash_aggregate(keys, values, agg: str = "sum", *, _positions=None):
+    """Group ``values`` by ``keys`` and reduce with ``agg``.
+
+    Returns ``(unique_keys, aggregates, count)``: rows [0, count) hold one
+    group each, keys ascending under the key dtype's total order; the tails
+    are the reference's, bit for bit.
+
+    ``keys`` may be a list of equal-length columns (composite GROUP BY key,
+    any supported dtype mix); ``unique_keys`` is then a list and groups
+    order lexicographically (first column primary). ``values`` and ``agg``
+    may be parallel lists (``SELECT sum(a), min(b), count(*) ... GROUP BY
+    k``) sharing one key sort (:func:`_hash_aggregate_multi`);
+    ``aggregates`` is then a list.
+
+    sum/count accumulate in the value dtype (wrapping for integers, IEEE
+    for floats; a float sum is a scatter-add per group); min/max are exact
+    for any supported dtype; mean is group sum / group count in float32
+    (float64 values keep float64). The holistic aggregations: ``first`` /
+    ``last`` (input order; the key sort is stable), ``median`` (the lower
+    order statistic, dtype kept), ``quantile:<q>`` and ``quantile_cont:<q>``
+    (above :data:`AGGREGATIONS`), ``var`` / ``std`` (population, two-pass),
+    ``count_distinct`` (int32), ``mode`` (most frequent value, ties to the
+    smallest under the total order), ``argmin`` / ``argmax`` (int32 input
+    position of the group's min / max, first occurrence). ``any`` / ``all``
+    reduce ``value != 0`` to a bool per group.
+
+    ``_positions`` (internal): the position column ``argmin`` / ``argmax``
+    report instead of the row index.
+    """
+    if isinstance(agg, (list, tuple)) or isinstance(values, (list, tuple)):
+        if not (isinstance(agg, (list, tuple)) and isinstance(values, (list, tuple))):
+            raise ValueError("multi-aggregate needs BOTH values and agg as lists")
+        if len(values) != len(agg) or not values:
+            raise ValueError("values and agg lists must be non-empty and equal-length")
+        return _hash_aggregate_multi(keys, list(values), list(agg), _positions=_positions)
+    _check_agg(agg)
+    cols, multi, n = _key_cols(keys)
+    if values.shape[0] != n:
+        raise ValueError("keys and values must have the same length")
+    dev = values.device
+    if n == 0:
+        return keys, torch.zeros((0,), dtype=_out_dt(agg, values.dtype), device=dev), _i32(0, dev)
+    q = 0.5 if agg == "median" else quantile_q(agg)
+    if agg not in _BY_VALUE and q is None:
+        # one column of the multi-aggregate: the same sort, reductions and tails
+        uk, (out,), count = _hash_aggregate_multi(keys, [values], [agg])
+        return uk, out, count
+    # sort by (key, value): the group's order statistics sit at known
+    # offsets and (key, value) runs mark distinct values
+    limbs, specs = _cols_to_limbs(cols)
+    nk = len(limbs)
+    vw = K.encode(values)
+    if agg in ("argmin", "argmax"):
+        posr = (_positions if _positions is not None
+                else torch.arange(n, dtype=torch.int32, device=dev))
+        *sk, svw, sposr = _stable_sort([*limbs, vw, posr], num_keys=nk + 1)
+    else:
+        *sk, svw = _stable_sort([*limbs, vw], num_keys=nk + 1)
+    sv = K.decode(svw, values.dtype)
+    first = _mark_first(sk)
+    last = _mark_last(first)
+    uk_cols = _limbs_to_cols(sk, specs)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def _pack(keys_out):
+        return keys_out if multi else keys_out[0]
+
+    if agg in ("min", "max"):
+        *out_keys, out_vals, count = filter(first if agg == "min" else last, *uk_cols, sv)
+        return _pack(out_keys), out_vals, count
+    if agg == "count_distinct":
+        # (key, value) run starts, counted per group by a prefix difference
+        csum = torch.cumsum(_mark_first([*sk, svw]), 0, dtype=torch.int32)
+        *out_keys, csum_c, count = filter(last, *uk_cols, csum)
+        return _pack(out_keys), _diff(csum_c), count
+    *out_keys, ends_c, count = filter(last, *uk_cols, pos)
+    starts_c = _shift1(ends_c, -1) + 1  # group starts
+    if q is not None:
+        # the group's order statistic at floor(q*(len-1)): exact integer
+        # halving for the median, float32 rank math for a general q
+        span = ends_c - starts_c
+        if quantile_is_cont(agg):
+            # PERCENTILE_CONT in float64 (the reference's type under x64)
+            r = span.to(torch.float64) * q
+            lo = _clip(torch.floor(r + 1e-6).to(torch.int32), 0, span)
+            hi = torch.minimum(lo + 1, span)
+            frac = (r - lo.to(torch.float64)).clamp(0.0, 1.0)
+            vlo = _take(sv, _clip(starts_c + lo, 0, n - 1)).to(torch.float64)
+            vhi = _take(sv, _clip(starts_c + hi, 0, n - 1)).to(torch.float64)
+            return _pack(out_keys), vlo + frac * (vhi - vlo), count
+        if agg == "median":
+            off = span // 2
+        else:
+            off = torch.floor(span.to(torch.float32) * q + 1e-6).to(torch.int32)
+        q_idx = starts_c + _clip(off, 0, span)
+        return _pack(out_keys), _take(sv, _clip(q_idx, 0, n - 1)), count
+    if agg in ("argmin", "argmax"):
+        # positions ride the (key, value) sort: the group's first row holds
+        # argmin, the first row of its last value run argmax (the first
+        # occurrence among ties, both)
+        idx = starts_c
+        if agg == "argmax":
+            idx = _run_bounds(_mark_first([*sk, svw]), pos)[_clip(ends_c, 0, n - 1)]
+        return _pack(out_keys), sposr[_clip(idx, 0, n - 1)].to(torch.int32), count
+    # mode: the group's longest (key, value) run, ties to the first (the
+    # smallest value). The reference's reversed segmented doubling scan over
+    # (run length, value word), every row carrying its run's pair; group
+    # start rows end up holding the whole group's best
+    kv_first = _mark_first([*sk, svw])
+    run_len = _run_bounds(kv_first, pos, end=True) - _run_bounds(kv_first, pos) + 1
+    pend = _run_bounds(first, pos, end=True)
+    best_l, best_w = run_len, svw
+    s = 1
+    while s < n:
+        nl = torch.cat([best_l[s:], best_l.new_zeros((s,))])
+        nw = torch.cat([best_w[s:], best_w.new_zeros((s,))])
+        better = (pos + s <= pend) & ((nl > best_l) | ((nl == best_l) & (nw < best_w)))
+        best_l = torch.where(better, nl, best_l)
+        best_w = torch.where(better, nw, best_w)
+        s *= 2
+    return _pack(out_keys), K.decode(best_w[_clip(starts_c, 0, n - 1)], values.dtype), count
+
+
+def _reduce(agg, sv, gid, group_n, int_sum=None, ntrue=None, words=None):
+    """One aggregate per group from a sort by key, row g for group g:
+    ``group_n`` holds the group sizes, ``int_sum`` / ``ntrue`` the
+    prefix-difference sum / true-row count of an integer sum or any/all,
+    ``words`` the rank words of a min/max column (encoded here if None).
+    Float sums are a scatter-add per group: each group accumulates on its
+    own, at ULP(group sum), where a difference of running sums would carry
+    the rounding of the whole prefix before the group. Untouched segments
+    (the tail) hold the reference's values."""
+    if agg == "count":
+        return group_n
+    if agg in ("any", "all"):
+        return ntrue != 0 if agg == "any" else ntrue == group_n  # ntrue unsigned there
+    mdt = _mean_dt(sv.dtype)
+    if agg in ("sum", "mean"):
+        s = _segsum(sv, gid) if sv.is_floating_point() else int_sum
+        return s if agg == "sum" else s.to(mdt) / group_n.clamp(min=1).to(mdt)
+    if agg in ("var", "std"):
+        # two-pass moments
+        x = sv.to(mdt)
+        cnt_g = group_n.clamp(min=1).to(mdt)
+        d = x - (_segsum(x, gid) / cnt_g)[gid]
+        v = _segsum(d * d, gid) / cnt_g
+        return torch.sqrt(v) if agg == "std" else v
+    # min / max: a segment reduction on rank words, decoded
+    words = K.encode(sv) if words is None else words
+    return K.decode(_seg_extreme(words, gid, agg), sv.dtype)
+
+
+def _prefix_sums(int_cols, truth_cols):
+    """The running sums a group-end filter differences: each integer
+    column's, in its own width (wrapping), then each any/all column's count
+    of true rows."""
+    return ([_running_sum(x) for x in int_cols]
+            + [torch.cumsum(_nonzero(x), 0, dtype=torch.int32) for x in truth_cols])
+
+
+def _group_ends(first, key_cols, runs, carried=()):
+    """One filter at group ends (the rows before each group start marked in
+    ``first``) of the key columns, the row positions, the running sums
+    ``runs`` and the ``carried`` columns. Returns ``(keys, group_n, diffs,
+    carried_c, count)``: the group sizes, each running sum differenced into
+    per-group values (exact under wraparound), and the carried columns'
+    last rows."""
+    pos = torch.arange(first.shape[0], dtype=torch.int32, device=first.device)
+    *c, count = filter(_mark_last(first), *key_cols, pos, *runs, *carried)
+    nk, nr = len(key_cols), len(runs)
+    pos_c = c[nk]
+    return (c[:nk], pos_c - _shift1(pos_c, -1), [_diff(r) for r in c[nk + 1:nk + 1 + nr]],
+            c[nk + 1 + nr:], count)
+
+
+def _hash_aggregate_multi(keys, val_cols, aggs, _positions=None):
+    """Several aggregations over one GROUP BY, sharing a single key sort.
+
+    The value columns ride one stable sort by the key limbs; per-group
+    reductions (:func:`_reduce`) come from segment ops over the group ids
+    (float sums, min, max, var/std) or running-sum differences (integer
+    sums, counts, any/all), and everything compacted at group ends
+    (``last`` values included) goes through one :func:`filter` (``first``
+    values share a second). The (key, value)-sorted aggregations (median,
+    quantiles, count_distinct, mode, argmin, argmax) each delegate to a
+    single-aggregate call, one extra sort each; both order groups by key,
+    so rows align. Returns ``(unique_keys, [aggregates...], count)``.
+    """
+    for a in aggs:
+        _check_agg(a)
+    cols, multi, n = _key_cols(keys)
+    if any(v.shape[0] != n for v in val_cols):
+        raise ValueError("all key/value columns must have equal length")
+    dev = cols[0].device
+    if n == 0:
+        return keys, [torch.zeros((0,), dtype=_out_dt(a, v.dtype), device=dev)
+                      for a, v in zip(aggs, val_cols)], _i32(0, dev)
+    delegated = {
+        i: hash_aggregate(keys, val_cols[i], a, _positions=_positions)[1]
+        for i, a in enumerate(aggs) if a in _DELEGATED or quantile_q(a) is not None
+    }
+    own = [i for i in range(len(aggs)) if i not in delegated]
+    limbs, specs = _cols_to_limbs(cols)
+    nk = len(limbs)
+    out = _stable_sort([*limbs, *[val_cols[i] for i in own]], num_keys=nk)
+    sk, svs = out[:nk], dict(zip(own, out[nk:]))
+    first = _mark_first(sk)
+
+    def _of(*names):
+        return [i for i in own if aggs[i] in names]
+
+    int_idx = [i for i in _of("sum", "mean") if not svs[i].is_floating_point()]
+    truth_idx, last_idx, first_idx = _of("any", "all"), _of("last"), _of("first")
+    out_keys, group_n, diffs, lasts, count = _group_ends(
+        first, _limbs_to_cols(sk, specs),
+        _prefix_sums([svs[i] for i in int_idx], [svs[i] for i in truth_idx]),
+        [svs[i] for i in last_idx])
+    int_sums = {i: _as_sum(d, svs[i].dtype) for i, d in zip(int_idx, diffs)}
+    ntrues = dict(zip(truth_idx, diffs[len(int_idx):]))
+    picked = dict(zip(last_idx, lasts))
+    if first_idx:
+        picked.update(zip(first_idx, filter(first, *[svs[i] for i in first_idx])[:-1]))
+    gid = _gid(first)
+    results = [delegated[i] if i in delegated else picked[i] if i in picked else
+               _reduce(a, svs[i], gid, group_n, int_sums.get(i), ntrues.get(i))
+               for i, a in enumerate(aggs)]
+    return (out_keys if multi else out_keys[0]), results, count
+
+
+def hash_aggregate_levels(keys, val_cols, aggs, level_cols):
+    """Prefix-sharing multi-aggregate for GROUPING SETS chains (ROLLUP): one
+    stable sort by all key columns serves every leading-prefix level (data
+    sorted by the full key list is sorted by any prefix of it), so an
+    L-level ROLLUP costs one multi-key sort plus L boundary and compaction
+    sweeps.
+
+    ``keys``: list of key columns. ``level_cols``: one leading-column count
+    per level (0 = one global group, the grand total). ``aggs`` must all be
+    in :data:`LEVEL_AGGREGATIONS`; integer sums and any/all share
+    level-independent running sums, float sums and min/max/var/std take one
+    segment reduction per level.
+
+    Returns ``[(unique_key_cols, [aggregates...], count), ...]`` aligned
+    with ``level_cols``, each shaped like :func:`hash_aggregate`'s output
+    (padded to n; group j of a level = the j-th distinct key prefix in
+    ascending order).
+    """
+    for a in aggs:
+        if a not in LEVEL_AGGREGATIONS:
+            raise ValueError(f"hash_aggregate_levels supports {LEVEL_AGGREGATIONS}, got {a!r}")
+    cols = list(keys)
+    if not cols:
+        raise ValueError("keys must have at least one column")
+    n = cols[0].shape[0]
+    if any(x.shape[0] != n for x in list(cols[1:]) + list(val_cols)):
+        raise ValueError("all key/value columns must have equal length")
+    level_cols = [int(c) for c in level_cols]
+    for c in level_cols:
+        if not 0 <= c <= len(cols):
+            raise ValueError(f"level column count {c} out of range 0..{len(cols)}")
+    dev = cols[0].device
+    if n == 0:
+        return [([torch.zeros((0,), dtype=k.dtype, device=dev) for k in cols[:c]],
+                 [torch.zeros((0,), dtype=_out_dt(a, v.dtype), device=dev)
+                  for a, v in zip(aggs, val_cols)], _i32(0, dev)) for c in level_cols]
+
+    limbs, specs = _cols_to_limbs(cols)
+    limb_at = [0]  # limb count of each leading-column prefix
+    for _, nl in specs:
+        limb_at.append(limb_at[-1] + nl)
+    nk = len(limbs)
+    out = _stable_sort([*limbs, *val_cols], num_keys=nk)
+    sk, svs = out[:nk], out[nk:]
+    uk_all = _limbs_to_cols(sk, specs)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    int_idx = [i for i, (a, sv) in enumerate(zip(aggs, svs))
+               if a in ("sum", "mean") and not sv.is_floating_point()]
+    truth_idx = [i for i, a in enumerate(aggs) if a in ("any", "all")]
+    # level-independent: the running sums (each level only re-compacts
+    # them) and the min/max rank words
+    runs = _prefix_sums([svs[i] for i in int_idx], [svs[i] for i in truth_idx])
+    words = {i: K.encode(svs[i]) for i, a in enumerate(aggs) if a in ("min", "max")}
+
+    results = []
+    for c in level_cols:
+        nl = limb_at[c]
+        firstk = pos == 0 if nl == 0 else _mark_first(sk[:nl])
+        out_keys, group_n, diffs, _, count = _group_ends(firstk, uk_all[:c], runs)
+        int_sums = {i: _as_sum(d, svs[i].dtype) for i, d in zip(int_idx, diffs)}
+        ntrues = dict(zip(truth_idx, diffs[len(int_idx):]))
+        gid = _gid(firstk)
+        results.append((list(out_keys), [
+            _reduce(a, sv, gid, group_n, int_sums.get(i), ntrues.get(i), words.get(i))
+            for i, (a, sv) in enumerate(zip(aggs, svs))], count))
+    return results
 
 
 # ------------------------------------------------------------ expansion on K2

@@ -8,6 +8,10 @@ traits on slices (``RadixSort::radix_sort``, mod.rs:18-20, and the
     argsort(keys)              -- stable sorting permutation (int64)
     sort_pairs(keys, values)   -- stable key/payload row sort (tuple semantics)
     sort_limbs(key_words, ...) -- stable co-sort by multi-limb keys
+    lexsort(columns)           -- stable permutation over several key columns
+    sort_segments(keys, offs)  -- stable sort inside each contiguous segment
+    top_k(keys, k, *arrays)    -- the k largest (or smallest) rows, stable ties
+    sort128 / argsort128 / sort_pairs128 -- 128-bit (hi, lo) keys
     counting_sort(x)           -- single-pass counting sort for uint8
 
 ``implementation`` selects an engine: "comparator" and "oracle" run the
@@ -24,12 +28,24 @@ from radix_sort_tpu_torch import config
 from radix_sort_tpu_torch import keys as K
 from radix_sort_tpu_torch.ops import pallas_sort, sample_sort, xla_radix
 from radix_sort_tpu_torch.ops._cosort import cosort
+from radix_sort_tpu_torch.ops.query import (
+    _cols_to_limbs,
+    _limbs_to_cols,
+    _stable_sort,
+    _take,
+)
 
 __all__ = [
     "sort",
     "argsort",
     "sort_pairs",
     "sort_limbs",
+    "lexsort",
+    "top_k",
+    "sort_segments",
+    "sort128",
+    "argsort128",
+    "sort_pairs128",
     "counting_sort",
     "IMPLEMENTATIONS",
 ]
@@ -154,3 +170,134 @@ def sort_limbs(key_words, value_words=(), *, descending: bool = False,
         out = cosort(key_words + value_words, nk)
     kw_out = [~w for w in out[:nk]] if descending else list(out[:nk])
     return kw_out, list(out[nk:])
+
+
+def lexsort(columns, *, descending: bool = False,
+            implementation: str = "auto") -> torch.Tensor:
+    """Stable sorting permutation (int64) over several key columns.
+
+    ``columns`` are equal-length tensors of any supported dtype mix; the
+    FIRST column is the primary key (numpy's ``lexsort`` takes it last).
+    Ties across all columns keep input order. Each column becomes its rank
+    limbs and the concatenation sorts through :func:`sort_limbs`, so
+    ``implementation="pallas"`` reaches the sample sort and its kernel.
+    """
+    columns = list(columns)
+    if not columns:
+        raise ValueError("lexsort needs at least one column")
+    n = columns[0].shape[0]
+    limbs = []
+    for c in columns:
+        if c.shape[0] != n:
+            raise ValueError("all columns must have equal length")
+        limbs.extend(K.encode_limbs(c))
+    idx = torch.arange(n, dtype=torch.int32, device=columns[0].device)
+    _, vals = sort_limbs(limbs, [idx], descending=descending,
+                         implementation=implementation)
+    return vals[0].to(torch.int64)
+
+
+def sort_segments(keys: torch.Tensor, offsets: torch.Tensor, values=(), *,
+                  descending: bool = False, implementation: str = "auto"):
+    """Independently sort each contiguous segment of ``keys`` (stably).
+
+    ``offsets`` is the (S+1,)-element boundary tensor of the CUB
+    ``DeviceSegmentedRadixSort`` convention: segment ``s`` is rows
+    ``[offsets[s], offsets[s+1])``, ``offsets[0] == 0`` and ``offsets[-1] ==
+    len(keys)`` (empty segments allowed). Returns ``(keys_sorted,
+    [values_sorted...])`` with every segment in place and sorted inside;
+    equal keys keep input order (``descending`` reverses key order within
+    each segment only).
+
+    One stable co-sort by (segment id, key): segment ids never decrease
+    over rows, so the sort leaves segments in place. Segment ids are a
+    running sum over the interior boundaries, marked by a scatter-add.
+    """
+    values = list(values)
+    n = keys.shape[0]
+    for v in values:
+        if v.shape[0] != n:
+            raise ValueError("all value arrays must match the keys length")
+    if n == 0:
+        return keys, values
+    marks = torch.zeros((n,), dtype=torch.int32, device=keys.device)
+    interior = offsets[1:-1].to(torch.int32)
+    if interior.shape[0]:
+        # duplicates (empty segments) just skip ids; out-of-range ones add 0
+        inside = ((interior >= 0) & (interior < n)).to(torch.int32)
+        marks.index_add_(0, interior.clamp(0, n - 1).to(torch.int64), inside)
+    seg = torch.cumsum(marks, 0, dtype=torch.int32)
+    key_limbs = [_dir(w, descending) for w in K.encode_limbs(keys)]
+    _resolve(implementation)  # validate; one co-sort whatever the engine
+    nk = 1 + len(key_limbs)
+    out = _stable_sort([seg, *key_limbs, *values], num_keys=nk)
+    out_keys = K.decode_limbs([_dir(w, descending) for w in out[1:nk]], keys.dtype)
+    return out_keys, list(out[nk:])
+
+
+def top_k(keys, k: int, *arrays: torch.Tensor, largest: bool = True):
+    """Top ``k`` rows by key under the dtype's total order.
+
+    Returns ``(top_keys, *top_arrays)``: the selected rows sorted
+    (descending for ``largest=True``, ascending otherwise), ties broken by
+    input position, lower first (the tie order of the JAX package's
+    ``lax.top_k``). Payload ``arrays`` are co-selected by gathers of the k
+    rows. ``keys`` may be a list of equal-length columns (composite ORDER BY
+    ... LIMIT k, by the lexicographic column tuple); ``top_keys`` is then a
+    column list.
+
+    The selection is one stable sort of the (complemented, for
+    ``largest``) rank limbs: PyTorch's ``topk`` promises no tie order, and
+    the stable sort gives the same rows on the CPU and on the card.
+    """
+    multi = isinstance(keys, (list, tuple))
+    cols = list(keys) if multi else [keys]
+    n = cols[0].shape[0]
+    if not 0 <= k <= n:
+        raise ValueError(f"k must be in [0, {n}], got {k}")
+    for a in list(cols[1:]) + list(arrays):
+        if a.shape[0] != n:
+            raise ValueError("all arrays must match the keys length")
+    if multi:
+        limbs, specs = _cols_to_limbs(cols)
+    else:
+        limbs = [K.encode(keys)]
+    # stable ascending over the complement == descending, ties in input order
+    sel = [~w for w in limbs] if largest else limbs
+    idx = torch.arange(n, dtype=torch.int64, device=cols[0].device)
+    *srt, idx = _stable_sort([*sel, idx], num_keys=len(sel))
+    top = [(~w if largest else w)[:k] for w in srt]
+    idx = idx[:k]
+    top_keys = _limbs_to_cols(top, specs) if multi else K.decode(top[0], keys.dtype)
+    return (top_keys, *[_take(a, idx) for a in arrays])
+
+
+def sort128(hi, lo, *, signed: bool = False, implementation: str = "auto"):
+    """Stable sort of 128-bit keys held as (hi, lo) 64-bit words.
+
+    The reference's u128/i128 key types (radix_digits.rs:37-53, 87-93):
+    keys travel as 4 big-endian int32 rank limbs (:func:`keys.encode128`)
+    through :func:`sort_limbs`. ``signed`` selects i128 (``hi`` int64).
+    Returns the sorted (hi, lo) pair.
+    """
+    out, _ = sort_limbs(K.encode128(hi, lo, signed=signed), implementation=implementation)
+    return K.decode128(out, signed=signed)
+
+
+def argsort128(hi, lo, *, signed: bool = False, implementation: str = "auto"):
+    """Indices (int64) of the stable 128-bit total-order sort."""
+    idx = torch.arange(hi.shape[0], dtype=torch.int32, device=hi.device)
+    _, vals = sort_limbs(K.encode128(hi, lo, signed=signed), [idx],
+                         implementation=implementation)
+    return vals[0].to(torch.int64)
+
+
+def sort_pairs128(hi, lo, values, *, signed: bool = False,
+                  implementation: str = "auto"):
+    """Stable 128-bit key / uint32-payload row sort (tuple semantics,
+    radix_digits.rs:126-136). Returns ``((hi, lo), values)``."""
+    if values.dtype != torch.uint32:
+        raise TypeError(f"values must be uint32 words, got {values.dtype}")
+    out, vals = sort_limbs(K.encode128(hi, lo, signed=signed), [values.view(torch.int32)],
+                           implementation=implementation)
+    return K.decode128(out, signed=signed), vals[0].view(torch.uint32)

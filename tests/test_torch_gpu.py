@@ -1,6 +1,7 @@
 """Port tests that need an NVIDIA GPU: the CUDA kernels against their plain
-PyTorch versions, the join on the card against the join on the CPU, and
-CUDA-event timing. They skip without a GPU.
+PyTorch versions, the join and the GROUP BY / ORDER BY functions on the
+card against the same calls on the CPU, and CUDA-event timing. They skip
+without a GPU.
 
 This file imports neither JAX nor the test harness's fixtures, so it also
 runs where only PyTorch with CUDA is installed:
@@ -212,3 +213,151 @@ def test_cuda_time_ms(cuda):
     x = torch.randn(1 << 20, device="cuda")
     times = timing.cuda_time_ms(lambda: torch.sort(x), runs=3)
     assert len(times) == 3 and all(t > 0 for t in times)
+
+
+# ------------------------------------------------- GROUP BY / ORDER BY slice
+
+
+def _same(g, c, what=""):
+    """A card result against the CPU one, recursively; bit for bit."""
+    if isinstance(c, (list, tuple)):
+        assert isinstance(g, (list, tuple)) and len(g) == len(c), what
+        for i, (a, b) in enumerate(zip(g, c)):
+            _same(a, b, f"{what}[{i}]")
+        return
+    assert g.is_cuda and g.dtype == c.dtype and g.shape == c.shape, what
+    gc = g.cpu()
+    if c.is_floating_point():
+        gc, c = gc.view({4: torch.int32, 8: torch.int64}[c.element_size()]), \
+            c.view({4: torch.int32, 8: torch.int64}[c.element_size()])
+    assert torch.equal(gc, c), what
+
+
+def _close(g, c, tol, what=""):
+    """Float aggregates: equal NaN positions, |card - cpu| <= tol elsewhere
+    (the card's scatter-add sums in another order)."""
+    assert g.is_cuda and g.dtype == c.dtype and g.shape == c.shape, what
+    g = g.cpu()
+    nan = torch.isnan(c)
+    assert torch.equal(torch.isnan(g), nan), what
+    d = (g[~nan] - c[~nan]).abs()
+    assert d.numel() == 0 or float(d.max()) <= tol, what
+
+
+def _cuda(x):
+    return [t.cuda() for t in x] if isinstance(x, (list, tuple)) else x.cuda()
+
+
+AGGS = list(rst.AGGREGATIONS) + ["quantile:0.9", "quantile_cont:0.9"]
+FLOAT_OUT = ("mean", "var", "std", "quantile_cont:0.9")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys_kind", ["u32", "composite"])
+def test_hash_aggregate_on_card_matches_cpu(cuda, keys_kind):
+    """Every aggregation alone and all of them in one multi-aggregate, on
+    the card against the CPU. Integer values throughout, so every output
+    but the float divisions (mean, var, std, quantile_cont) is exact."""
+    rng = np.random.default_rng(3)
+    n = 50_000
+    if keys_kind == "u32":
+        keys = torch.from_numpy(rng.integers(0, 3000, n).astype(np.uint32))
+    else:
+        keys = [torch.from_numpy(rng.integers(0, 4, n).astype(np.uint8)),
+                torch.from_numpy(rng.integers(-3, 3, n).astype(np.int64))]
+    vals = [torch.from_numpy(rng.integers(-50, 50, n).astype(dt))
+            for dt in (np.int8, np.int32, np.int64)]
+    vals.append(torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)))
+    for v in vals:
+        for agg in AGGS:
+            cpu = rst.hash_aggregate(keys, v, agg)
+            gpu = rst.hash_aggregate(_cuda(keys), v.cuda(), agg)
+            _same((gpu[0], gpu[2]), (cpu[0], cpu[2]), agg)
+            if agg in FLOAT_OUT:
+                _close(gpu[1], cpu[1], 1e-3 * (1 + float(cpu[1].abs().nan_to_num().max())), agg)
+            else:
+                _same(gpu[1], cpu[1], agg)
+    cpu = rst.hash_aggregate(keys, [vals[1]] * len(AGGS), AGGS)
+    gpu = rst.hash_aggregate(_cuda(keys), [vals[1].cuda()] * len(AGGS), AGGS)
+    for agg, g, c in zip(AGGS, gpu[1], cpu[1]):
+        if agg in FLOAT_OUT:
+            _close(g, c, 1e-3 * (1 + float(c.abs().nan_to_num().max())), agg)
+        else:
+            _same(g, c, f"multi {agg}")
+
+
+@pytest.mark.cuda
+def test_float_sums_and_levels_on_card(cuda):
+    """Float sums (a scatter-add per group, in another order on the card)
+    within (n_g - 1) * u * sum|x| of the CPU's; ROLLUP levels (2, 1, 0)."""
+    rng = np.random.default_rng(4)
+    n = 40_000
+    keys = [torch.from_numpy(rng.integers(0, 3, n).astype(np.uint8)),
+            torch.from_numpy(rng.integers(0, 2, n).astype(np.uint8))]
+    x = torch.from_numpy(rng.random(n).astype(np.float32) * 100)
+    q = torch.from_numpy(rng.integers(1, 51, n).astype(np.int32))
+    aggs = ["sum", "count", "min", "max", "var", "mean", "any", "all"]
+    cpu = rst.hash_aggregate_levels(keys, [x, q, x, q, x, x, q, q], aggs, [2, 1, 0])
+    gpu = rst.hash_aggregate_levels(_cuda(keys), [x.cuda(), q.cuda(), x.cuda(), q.cuda(),
+                                                  x.cuda(), x.cuda(), q.cuda(), q.cuda()],
+                                    aggs, [2, 1, 0])
+    bound = (n - 1) * 2.0**-24 * float(x.abs().sum())
+    for (gk, ga, gc), (ck, ca, cc) in zip(gpu, cpu):
+        _same((gk, gc), (ck, cc), "level keys")
+        for agg, g, c in zip(aggs, ga, ca):
+            if agg in ("sum", "var", "mean"):
+                _close(g, c, bound, agg)
+            else:
+                _same(g, c, agg)
+
+
+@pytest.mark.cuda
+def test_sort_api_on_card_matches_cpu(cuda):
+    """lexsort, sort_segments, top_k and the 128-bit trio on the card; the
+    pallas lexsort and sort_pairs128 at 2**19 rows go through K1."""
+    rng = np.random.default_rng(5)
+    n = 1 << 19
+    cols = [torch.from_numpy(rng.integers(0, 2000, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
+            torch.from_numpy(rng.integers(1, 8, n).astype(np.int32))]
+    before = extract.LAUNCHES
+    _same(rst.lexsort(_cuda(cols), implementation="pallas"), rst.lexsort(cols), "lexsort")
+    hi = torch.from_numpy(rng.integers(0, 4, n, dtype=np.uint64))
+    lo = torch.from_numpy(rng.integers(0, 2**64, n, dtype=np.uint64))
+    v = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+    _same(rst.sort_pairs128(hi.cuda(), lo.cuda(), v.cuda(), implementation="pallas"),
+          rst.sort_pairs128(hi, lo, v), "sort_pairs128")
+    assert extract.LAUNCHES > before
+    _same(rst.sort128(hi.cuda(), lo.cuda()), rst.sort128(hi, lo), "sort128")
+    _same(rst.argsort128(hi.cuda(), lo.cuda()), rst.argsort128(hi, lo), "argsort128")
+    offsets = torch.from_numpy(np.concatenate([[0], np.sort(rng.integers(0, n, 99)), [n]])
+                               .astype(np.int32))
+    _same(rst.sort_segments(cols[1].cuda(), offsets.cuda(), [cols[0].cuda()], descending=True),
+          rst.sort_segments(cols[1], offsets, [cols[0]], descending=True), "sort_segments")
+    for largest in (True, False):
+        _same(rst.top_k(cols[2].cuda(), 1000, cols[0].cuda(), largest=largest),
+              rst.top_k(cols[2], 1000, cols[0], largest=largest), "top_k")
+        _same(rst.top_k(_cuda(cols[::2]), 77, cols[1].cuda(), largest=largest),
+              rst.top_k(cols[::2], 77, cols[1], largest=largest), "top_k composite")
+
+
+@pytest.mark.cuda
+def test_relational_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(6)
+    lk = torch.from_numpy(rng.integers(0, 2**32, 30_000, dtype=np.uint64).astype(np.uint32))
+    rk = torch.from_numpy(rng.integers(0, 2**32, 50_000, dtype=np.uint64).astype(np.uint32))
+    rv = torch.from_numpy(rng.random(50_000))
+    valid = torch.from_numpy(rng.random(50_000) < 0.8)
+    for direction in rst.ASOF_DIRECTIONS:
+        for kw in ({}, {"tolerance": 3_000_000_000}, {"right_valid": valid}):
+            kw_g = {k: (x.cuda() if torch.is_tensor(x) else x) for k, x in kw.items()}
+            _same(rst.join_asof(lk.cuda(), rk.cuda(), rv.cuda(), direction=direction, **kw_g),
+                  rst.join_asof(lk, rk, rv, direction=direction, **kw), direction)
+    a = torch.from_numpy(rng.integers(0, 5000, 20_000).astype(np.uint32))
+    b = torch.from_numpy(rng.integers(0, 7000, 20_000).astype(np.uint32))
+    for op in (rst.set_union, rst.set_intersect, rst.set_difference):
+        _same(op(a.cuda(), b.cuda()), op(a, b), op.__name__)
+        _same(op([a.cuda(), b.cuda()], [b.cuda(), a.cuda()]), op([a, b], [b, a]), op.__name__)
+    for method in ("lower", "higher", "nearest"):
+        _same(rst.quantiles(rv.cuda(), [0, 0.3, 0.5, 1], method=method),
+              rst.quantiles(rv, [0, 0.3, 0.5, 1], method=method), method)
