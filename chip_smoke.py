@@ -42,7 +42,19 @@ together) and drives the port's two paths:
     worst case of recursive summation in any order); O1 a three-column
     ``lexsort`` of LINEITEM and O2 a 128-bit ``sort_pairs128``, both on the
     kernel engine, so K1 runs on the ORDER BY path; then K1 against its
-    plain version at those shapes.
+    plain version at those shapes;
+  * the relational facade, ``Table``, at TPC-H scale factor 10 (phase 9):
+    T1 Q1, T2 Q3 (two joins), T3 Q13 (a left join), T4 seven window ops
+    over ORDERS and a running sum in one partition, T5 band joins (1024
+    price tiers, one candidate a row; two date windows per customer, more
+    than one) and an UNNEST, each against an oracle of stable
+    ``torch.sort``, ``torch.searchsorted``, ``torch.unique``,
+    ``index_add_`` and ``torch.repeat_interleave`` (float sums within the
+    recursive-summation bound), with wall time, device busy time, top
+    device costs, peak memory and K2 launches; the joins, the band join
+    with several candidates and the UNNEST go through K2, which is then
+    held bit-exact against its plain version and timed beside it and its
+    bound at each of those expansions' shapes.
 
 Each path runs with its kernel's launch count set to 0 just before and
 read just after, and the run fails unless the path went through the
@@ -66,6 +78,7 @@ import torch
 
 import radix_sort_tpu_torch as rst
 from radix_sort_tpu_torch import _build, keys
+from radix_sort_tpu_torch.table import Table
 from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, sample_sort
 from radix_sort_tpu_torch.utils import distributions as dist
 from radix_sort_tpu_torch.utils import timing
@@ -918,43 +931,55 @@ def _k2_bounds(ends, m_copy, columns, capacity):
     return nbytes, old
 
 
-def expand_at_join_shapes(work):
-    """Time K2 against its plain version (and, for the UNNEST, against
-    torch.repeat_interleave) on the exact arguments J1, J2 and R gave it."""
-    recorded = {}
+def record_k2(call):
+    """The arguments of every K2 expansion one run of ``call`` makes."""
+    calls = []
     real = expand.expand_rows
-    for label, (call, _, _, _) in work.items():
-        calls = []
 
-        def recorder(ends, lo, m_copy, columns, *, capacity, calls=calls):
-            calls.append((ends, lo, m_copy, columns, capacity))
-            return real(ends, lo, m_copy, columns, capacity=capacity)
+    def recorder(ends, lo, m_copy, columns, *, capacity):
+        calls.append((ends, lo, m_copy, columns, capacity))
+        return real(ends, lo, m_copy, columns, capacity=capacity)
 
-        expand.expand_rows = recorder
-        try:
-            call()
-        finally:
-            expand.expand_rows = real
-        recorded[label.split()[0]] = calls
-    rows, pairs = [], []
-    for shape, calls in recorded.items():
-        check(len(calls) == 1, f"{shape}: {len(calls)} expansions, expected 1")
-        for ends, lo, m_copy, columns, capacity in calls:
+    expand.expand_rows = recorder
+    try:
+        call()
+    finally:
+        expand.expand_rows = real
+    return calls
+
+
+def k2_at_shapes(workloads):
+    """Check K2 bit-exact against its plain version on the exact arguments
+    each workload (name -> (call, expected expansions)) gave it, and time it
+    beside its plain version, its bound and, where all columns are broadcast
+    and of one dtype, one torch.repeat_interleave of the stacked columns.
+    A workload with several expansions names them name.1, name.2, ..."""
+    real = expand.expand_rows
+    rows, err = [], 0
+    for name, (call, n_exp) in workloads.items():
+        calls = record_k2(call)
+        check(len(calls) == n_exp, f"{name}: {len(calls)} expansions, expected {n_exp}")
+        for j, (ends, lo, m_copy, columns, capacity) in enumerate(calls):
+            shape = name if n_exp == 1 else f"{name}.{j + 1}"
             args = (ends, lo, m_copy, columns)
             got, gc = real(*args, capacity=capacity)
             ref, rc = expand.expand_rows_plain(*args, capacity=capacity)
             check(torch.equal(gc, rc) and all(torch.equal(g, r) for g, r in zip(got, ref)),
                   f"K2 differs from plain at the {shape} shapes")
-            pairs += [(gc, rc)] + [(g.view(torch.uint8), r.view(torch.uint8))
-                                   for g, r in zip(got, ref)]
+            err = max(err, max_abs_err([(gc, rc)] + [(g.view(torch.uint8), r.view(torch.uint8))
+                                                     for g, r in zip(got, ref)]))
             del got, ref
             total = int(rc)
             library = None
-            if len(columns) == 1 and not columns[0].copied:  # repeat: one PyTorch call
+            if not any(c.copied for c in columns) and len({c.values.dtype
+                                                             for c in columns}) == 1:
+                # a repeat: one PyTorch call on the columns stacked beforehand
                 emits = torch.diff(ends, prepend=ends.new_zeros((1,)))
+                v = (columns[0].values if len(columns) == 1
+                     else torch.stack([c.values for c in columns], 1))
 
-                def library(v=columns[0].values, emits=emits, total=total):
-                    return torch.repeat_interleave(v, emits, output_size=total)
+                def library(v=v, emits=emits, total=total):
+                    return torch.repeat_interleave(v, emits, dim=0, output_size=total)
             mk, mp, ml = interleaved_ms(lambda: real(*args, capacity=capacity),
                                         lambda: expand.expand_rows_plain(
                                             *args, capacity=capacity), library)
@@ -979,7 +1004,8 @@ def expand_at_join_shapes(work):
                 f"({nbytes / mk / 1e6:.0f} GB/s), plain {mp:.3f} ms, bound {bound:.3f} ms "
                 f"({100 * bound / mk:.0f}% of it; the old three-word schedule's bound "
                 f"{old_bound:.3f} ms){lib}")
-    return rows, max_abs_err(pairs)
+        del calls
+    return rows, err
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1379,13 +1405,396 @@ def time_workloads(work):
         log(f"{name}: median {ms:.3f} ms of {[round(x, 3) for x in ts]}; "
             f"{rows_in / ms / 1e3:.1f} M input rows/s; peak allocated {peak / 2**30:.2f} GiB "
             f"above the inputs; device busy "
-            + (f"{busy / 1e3:.3f} ms in {len(kernels)} kernels" if busy else
+            + (f"{busy / 1e3:.3f} ms in {len(kernels)} kernels, idle "
+               f"{100 * (1 - busy / 1e3 / ms):.1f}% of the wall time" if busy else
                "not measured (the profiler showed no device time)"))
+        if busy / 1e3 > ms:
+            log(f"{name} WARNING: device busy exceeds the wall time (kernels overlapped, or "
+                f"the profiled call ran slower than the median timed one); the idle share "
+                f"above is negative and not meaningful")
         if busy:
             log(f"{name} top device costs: " + "; ".join(
                 f"{k[:60]} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)"
                 for us, k in kernels[:5]))
     return out
+
+
+# ---------------------------------------------------------------- phase 9
+
+Q3_DATE = _days(1995, 3, 15)  # TPC-H 2.4.3 substitution parameters
+SEGMENTS = np.array(["", "AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"])
+RETURNFLAGS, LINESTATUSES = np.array(["", "A", "N", "R"]), np.array(["", "F", "O"])
+T2_CAPACITY = (1 << 21, 1 << 22)  # ~1.46M BUILDING orders, ~0.3M of their lineitems
+T3_CAPACITY = 1 << 24  # 14.85M kept orders + ~0.5M customers without one
+T5_TIERS = 1024
+# disjoint tiers [lo, lo + 545 - 2**-10], lo = 800 + 545 i, exact in float64: every
+# O_TOTALPRICE (whole cents in [857.71, 555285.17]) lies in exactly one
+T5_TIER_LO, T5_TIER_W, T5_TIER_SPAN = 800.0, 545.0, 545.0 - 2.0**-10
+T5_CAPACITY = 1 << 25
+U_VALUES, U_CAPACITY = 1_000_000, 1 << 26
+
+
+def _codes(chars, vocab):
+    """uint8 character codes -> uint32 codes into ``vocab`` (sorted, "" at
+    index 0), by a 256-entry lookup on the card."""
+    lut = torch.zeros(256, dtype=torch.int32, device=DEV)
+    for i, v in enumerate(vocab[1:], 1):
+        lut[ord(v)] = i
+    return lut[chars.to(torch.int64)].view(torch.uint32)
+
+
+def facade_tables(t, gen):
+    """The SF10 columns as Tables on the card: the flags as uint32 codes
+    plus dictionaries (no host string arrays), C_MKTSEGMENT drawn uniformly
+    from its 5 values (4.2.3), dates as int32 days, and Q13's o_comment
+    NOT LIKE '%special%requests%' as a seeded 1% flag."""
+    n_c, n_o = t["c_custkey"].shape[0], t["o_orderkey"].shape[0]
+    seg = torch.randint(1, 6, (n_c,), generator=gen, device=DEV).to(torch.int32)
+    lineitem = Table({
+        "l_orderkey": t["l_orderkey"], "l_returnflag": _codes(t["l_returnflag"], RETURNFLAGS),
+        "l_linestatus": _codes(t["l_linestatus"], LINESTATUSES),
+        "l_quantity": t["l_quantity"], "l_extendedprice": t["l_extendedprice"],
+        "l_discount": t["l_discount"], "l_tax": t["l_tax"], "l_shipdate": t["l_shipdate"],
+    }, dictionaries={"l_returnflag": RETURNFLAGS, "l_linestatus": LINESTATUSES}, device=DEV)
+    orders = Table({
+        "o_orderkey": t["o_orderkey"], "o_custkey": t["o_custkey"],
+        "o_orderdate": t["o_orderdate"], "o_totalprice": t["o_totalprice"],
+        "o_shippriority": torch.zeros(n_o, dtype=torch.int32, device=DEV),
+        "o_special": torch.rand(n_o, generator=gen, device=DEV) < 0.01,
+    }, device=DEV)
+    customer = Table({"c_custkey": t["c_custkey"], "c_mktsegment": seg.view(torch.uint32)},
+                     dictionaries={"c_mktsegment": SEGMENTS}, device=DEV)
+    return lineitem, orders, customer
+
+
+def t1_q1(li):
+    """TPC-H Q1 (2.4.1) through Table calls."""
+    t = li.filter(li["l_shipdate"] <= Q1_SHIPDATE)
+    t = t.with_columns(disc_price=t["l_extendedprice"] * (1 - t["l_discount"]))
+    t = t.with_columns(charge=t["disc_price"] * (1 + t["l_tax"]))
+    t = t.aggregate(["l_returnflag", "l_linestatus"], {
+        "sum_qty": ("sum", "l_quantity"), "sum_base_price": ("sum", "l_extendedprice"),
+        "sum_disc_price": ("sum", "disc_price"), "sum_charge": ("sum", "charge"),
+        "avg_qty": ("mean", "l_quantity"), "avg_price": ("mean", "l_extendedprice"),
+        "avg_disc": ("mean", "l_discount"), "count_order": "count"})
+    return t.sort_by(["l_returnflag", "l_linestatus"])
+
+
+def check_t1(raw, got):
+    """T1 against phase 8's Q1 oracle: the string codes decode to the flag
+    characters, the aggregates in the order Q1_AGGS lists them."""
+    k = int(got.count)
+    chars = {}
+    for name, vocab in (("l_returnflag", RETURNFLAGS), ("l_linestatus", LINESTATUSES)):
+        lut = torch.tensor([0] + [ord(v) for v in vocab[1:]], dtype=torch.int32, device=DEV)
+        chars[name] = lut[got[name][:k].view(torch.int32).to(torch.int64)].to(torch.uint8)
+        check(list(got.dictionary(name)) == list(vocab), f"T1 {name} dictionary")
+    aggs = [got[c][:k] for c in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+                                 "avg_qty", "avg_price", "avg_disc", "count_order")]
+    return check_q1(raw, ((chars["l_returnflag"], chars["l_linestatus"]), aggs, got.count))
+
+
+def t2_q3(li, orders, customer):
+    """TPC-H Q3 (2.4.3): CUSTOMER filtered on 'BUILDING' joins ORDERS
+    before the date, then LINEITEM after it (two joins, one K2 launch
+    each), revenue summed per (l_orderkey, o_orderdate, o_shippriority),
+    the top 10 by revenue desc, o_orderdate."""
+    c = customer.filter(customer["c_mktsegment"].view(torch.int32)
+                        == int(customer.code("c_mktsegment", "BUILDING").view(torch.int32)))
+    o = orders.filter(orders["o_orderdate"] < Q3_DATE).select(
+        "o_orderkey", "o_custkey", "o_orderdate", "o_shippriority").rename(
+        {"o_custkey": "c_custkey", "o_orderkey": "l_orderkey"})
+    co, ovf1 = c.join(o, "c_custkey", capacity=T2_CAPACITY[0])
+    lf = li.filter(li["l_shipdate"] > Q3_DATE).select("l_orderkey", "l_extendedprice",
+                                                      "l_discount")
+    col, ovf2 = co.join(lf, "l_orderkey", capacity=T2_CAPACITY[1])
+    col = col.with_columns(revenue=col["l_extendedprice"] * (1 - col["l_discount"]))
+    agg = col.aggregate(["l_orderkey", "o_orderdate", "o_shippriority"],
+                        {"revenue": ("sum", "revenue")})
+    agg = agg.with_columns(neg_date=-agg["o_orderdate"])
+    return agg.top_k(10, ["revenue", "neg_date"]), (ovf1, ovf2)
+
+
+def check_t2(raw, li, orders, customer, out):
+    """The Q3 oracle: membership by sort + searchsorted, revenue per order
+    by torch.unique + index_add_ (near-exact), the top 10 by a stable sort;
+    revenues within the recursive-summation bound."""
+    got, ovfs = out
+    check(not any(bool(o) for o in ovfs), "T2: a join overflowed its capacity")
+    seg = customer["c_mktsegment"].view(torch.int32)
+    bc = torch.sort(raw["c_custkey"][seg == 2]).values
+    ok_o = raw["o_orderdate"] < Q3_DATE
+    pos = torch.searchsorted(bc, raw["o_custkey"]).clamp(max=bc.shape[0] - 1)
+    ok_o &= bc[pos] == raw["o_custkey"]
+    ok_keys, ok_idx = torch.sort(_rank(raw["o_orderkey"])[ok_o])
+    ok_dates = raw["o_orderdate"][ok_o][ok_idx]
+    lk = _rank(raw["l_orderkey"])
+    p = torch.searchsorted(ok_keys, lk).clamp(max=ok_keys.shape[0] - 1)
+    ok_l = (ok_keys[p] == lk) & (raw["l_shipdate"] > Q3_DATE)
+    rev = raw["l_extendedprice"][ok_l] * (1 - raw["l_discount"][ok_l])
+    uk, inv, cnt = torch.unique(lk[ok_l], return_inverse=True, return_counts=True)
+    exact = exact_sums(rev, inv, uk.shape[0])
+    dates = ok_dates[torch.searchsorted(ok_keys, uk)]
+    order = torch.sort(dates, stable=True).indices  # uk ascending: ties by key
+    order = order[torch.sort(exact[order], stable=True, descending=True).indices][:10]
+    k = int(got.count)
+    check(k == min(10, uk.shape[0]), "T2 row count")
+    check_exact(got["l_orderkey"][:k], uk[order].to(torch.int32).view(torch.uint32),
+                "T2 l_orderkey")
+    check_exact(got["o_orderdate"][:k], dates[order], "T2 o_orderdate")
+    check_exact(got["o_shippriority"][:k], torch.zeros(k, dtype=torch.int32, device=DEV),
+                "T2 o_shippriority")
+    a = torch.zeros(uk.shape[0], dtype=torch.float64, device=DEV).index_add_(0, inv, rev.abs())
+    bound = (cnt[order] - 1) * U64 * a[order] + 8 * U64 * a[order]
+    err = (got["revenue"][:k] - exact[order]).abs()
+    check(bool((err <= bound).all()), "T2 revenue above its bound")
+    return (f"{int(ok_o.sum()):,} BUILDING orders before {Q3_DATE}, {int(ok_l.sum()):,} "
+            f"lineitems, {uk.shape[0]:,} groups; top {k} bit-exact, revenue within "
+            f"{float((err / bound).max()):.2e} of its bound")
+
+
+def t3_q13(orders, customer):
+    """TPC-H Q13 (2.4.13): CUSTOMER left join ORDERS (the o_comment filter
+    as a 1% flag), count(o_orderkey) per customer (the unmatched right side
+    is NULL and not counted), the customers per count, sorted."""
+    o = orders.filter(~orders["o_special"]).select("o_orderkey", "o_custkey").rename(
+        {"o_custkey": "c_custkey"})
+    co, ovf = customer.join(o, "c_custkey", capacity=T3_CAPACITY, how="left")
+    per = co.aggregate("c_custkey", {"c_count": ("count", "o_orderkey")})
+    dist = per.aggregate("c_count", {"custdist": "count"})
+    return dist.sort_by(["custdist", "c_count"], descending=True), ovf
+
+
+def check_t3(raw, out):
+    got, ovf = out
+    check(not bool(ovf), "T3: the join overflowed its capacity")
+    n_c = raw["c_custkey"].shape[0]
+    keep = ~raw["o_special"]
+    per = torch.zeros(n_c + 1, dtype=torch.int64, device=DEV).index_add_(
+        0, raw["o_custkey"][keep], torch.ones(int(keep.sum()), dtype=torch.int64, device=DEV))
+    per = per[raw["c_custkey"]]  # one count per customer (keys 1..n_c)
+    cc, dist = torch.unique(per, return_counts=True)
+    order = torch.sort(cc, stable=True, descending=True).indices
+    order = order[torch.sort(dist[order], stable=True, descending=True).indices]
+    k = int(got.count)
+    check(k == cc.shape[0], "T3 row count")
+    check_exact(got["c_count"][:k], cc[order].to(torch.int32), "T3 c_count")
+    check_exact(got["custdist"][:k], dist[order].to(torch.int32), "T3 custdist")
+    return (f"{n_c:,} customers, {int(per.sum()):,} counted orders, {k} distinct counts; "
+            "bit-exact")
+
+
+T4_OPS = {"rn": "row_number", "rk": "rank", "pr": "percent_rank",
+          "cs": ("cumsum", "o_totalprice"), "lg": ("lag", "o_totalprice", 1),
+          "rs": ("rolling_sum", "o_totalprice", 2, 0), "rm": ("range_min", "o_totalprice", 30, 0)}
+
+
+def t4_windows(orders):
+    """T4: the seven window ops over ORDERS by customer and order date,
+    then a running sum over all 15M rows as one partition."""
+    o = orders.select("o_custkey", "o_orderdate", "o_totalprice")
+    w = o.window(T4_OPS, partition_by="o_custkey", order_by="o_orderdate")
+    return w.window({"all_cs": ("cumsum", "o_totalprice")}, order_by="o_orderdate")
+
+
+def check_t4(raw, got):
+    """The window oracle: a stable torch.sort by (custkey, date), run bounds
+    by torch.searchsorted, exact sums as int64 cents; floats within the
+    recursive-summation bound of their frame, the rest bit-exact."""
+    key, date, x = raw["o_custkey"], raw["o_orderdate"], raw["o_totalprice"]
+    n = key.shape[0]
+    perm = torch.sort(date, stable=True).indices
+    perm = perm[torch.sort(key[perm], stable=True).indices]
+    ks, ds, xs = key[perm], date[perm], x[perm]
+    comb = ks * (1 << 32) + ds.to(torch.int64)
+    i = torch.arange(n, device=DEV)
+    start = torch.searchsorted(ks, ks, side="left")
+    end = torch.searchsorted(ks, ks, side="right") - 1
+    peer = torch.searchsorted(comb, comb, side="left")
+    cents = torch.round(xs * 100).to(torch.int64)
+    csum = torch.cumsum(cents, 0)
+
+    def back(r):  # sorted order -> input order
+        out = torch.empty_like(r)
+        out[perm] = r
+        return out
+
+    def float_ok(name, want_cents, n_terms, abs_sum):
+        want = want_cents.to(torch.float64) / 100
+        bound = (n_terms.to(torch.float64) - 1).clamp(min=0) * U64 * abs_sum \
+            + 4 * U64 * abs_sum
+        err = (got[name] - back(want)).abs()
+        check(bool((err <= back(bound)).all()), f"T4 {name} above its bound")
+        return float((err / back(bound).clamp(min=1e-300)).max())
+
+    rn = i - start + 1
+    check_exact(got["rn"], back(rn.to(torch.int32)), "T4 row_number")
+    rank = peer - start + 1
+    check_exact(got["rk"], back(rank.to(torch.int32)), "T4 rank")
+    cnt = end - start + 1
+    pr = torch.where(cnt > 1, (rank - 1).to(torch.float32)
+                     / (cnt - 1).clamp(min=1).to(torch.float32), 0.0)
+    check_exact(got["pr"], back(pr), "T4 percent_rank")
+    prev = torch.where(start > 0, csum[(start - 1).clamp(min=0)], 0)
+    shares = [float_ok("cs", csum - prev, rn, (csum - prev).to(torch.float64) / 100)]
+    lag = torch.where(i > start, xs[(i - 1).clamp(min=0)], 0.0)
+    check_exact(got["lg"], back(lag), "T4 lag")
+    ws = torch.maximum(start, i - 2)
+    before = torch.where(ws > 0, csum[(ws - 1).clamp(min=0)], 0)
+    shares.append(float_ok("rs", csum - before, i - ws + 1,
+                           (csum - before).to(torch.float64) / 100))
+    lo = torch.searchsorted(comb, comb - 30, side="left")  # the frame [d - 30, d], peers
+    hi = torch.searchsorted(comb, comb, side="right") - 1
+    rm = xs[hi]
+    for k in range(1, int((hi - lo).max()) + 1):  # brute force over the frame
+        j = hi - k
+        rm = torch.where(j >= lo, torch.minimum(rm, xs[j.clamp(min=0)]), rm)
+    check_exact(got["rm"], back(rm), "T4 range_min")
+    # one partition: the running sum in date order (ties in input order)
+    pa = torch.sort(date, stable=True).indices
+    ca = torch.cumsum(torch.round(x[pa] * 100).to(torch.int64), 0)
+    want = torch.empty_like(ca)
+    want[pa] = ca
+    ra = torch.empty_like(i)
+    ra[pa] = i + 1
+    shares.append(float_ok("all_cs", want[perm], ra[perm], want[perm].to(torch.float64) / 100))
+    return (f"{n:,} rows, {int((start == i).sum()):,} partitions; ranks, lag and range_min "
+            f"bit-exact, sums within {max(shares):.2e} of their bound")
+
+
+def t5_inputs(raw, gen):
+    """T5's right sides: 1024 disjoint price tiers; two date windows of
+    90-365 days per customer (overlapping at random), shuffled; 1M values
+    to UNNEST with counts uniform in [0, 128]."""
+    lo = T5_TIER_LO + T5_TIER_W * torch.arange(T5_TIERS, dtype=torch.float64, device=DEV)
+    tiers = Table({"lo": lo, "hi": lo + T5_TIER_SPAN,
+                   "tier": torch.arange(T5_TIERS, dtype=torch.int32, device=DEV)}, device=DEV)
+    n_c = raw["c_custkey"].shape[0]
+    cust = torch.arange(1, n_c + 1, device=DEV).repeat_interleave(2)
+    start = torch.randint(STARTDATE, ENDDATE, (2 * n_c,), generator=gen, device=DEV)
+    length = torch.randint(90, 366, (2 * n_c,), generator=gen, device=DEV)
+    shuffle = torch.randperm(2 * n_c, generator=gen, device=DEV)
+    windows = Table({"o_custkey": cust[shuffle], "w_lo": start[shuffle].to(torch.int32),
+                     "w_hi": (start + length)[shuffle].to(torch.int32),
+                     "wid": torch.arange(2 * n_c, dtype=torch.int32, device=DEV)}, device=DEV)
+    values = Table({
+        "v": torch.randint(-(1 << 31), 1 << 31, (U_VALUES,), dtype=torch.int32, generator=gen,
+                           device=DEV),
+        "n": torch.randint(0, 129, (U_VALUES,), dtype=torch.int32, generator=gen, device=DEV),
+    }, device=DEV)
+    return tiers, windows, values
+
+
+def t5_tiers(orders, tiers):
+    return orders.select("o_orderkey", "o_totalprice").join_band(
+        tiers, "o_totalprice", "between", ("lo", "hi"), capacity=orders.num_rows)
+
+
+def t5_windows(orders, windows):
+    return orders.select("o_orderkey", "o_custkey", "o_orderdate").join_band(
+        windows, "o_orderdate", "between", ("w_lo", "w_hi"), on="o_custkey",
+        capacity=T5_CAPACITY)
+
+
+def check_t5_tiers(raw, tiers, out):
+    got, ovf = out
+    x = raw["o_totalprice"]
+    tier = torch.floor((x - T5_TIER_LO) / T5_TIER_W).to(torch.int64)
+    lo = tiers["lo"][tier]
+    tier = torch.where(x < lo, tier - 1, torch.where(x > lo + T5_TIER_SPAN, tier + 1, tier))
+    check(bool(((x >= tiers["lo"][tier]) & (x <= tiers["hi"][tier])).all()),
+          "T5 tiers oracle: a price outside its tier")
+    n = x.shape[0]
+    check(not bool(ovf) and int(got.count) == n, "T5 tiers: one match per order")
+    check_exact(got["o_orderkey"][:n], raw["o_orderkey"], "T5 tiers o_orderkey")
+    check_exact(got["tier"][:n], tier.to(torch.int32), "T5 tiers tier")
+    return f"{n:,} orders, each in one of {T5_TIERS} tiers; bit-exact"
+
+
+def check_t5_windows(raw, windows, out):
+    """Pairs (order, window) with lo <= date <= hi of the order's customer,
+    by order, then by (lo, input position) of the customer's windows."""
+    got, ovf = out
+    key, wlo, whi, wid = (windows[c] for c in ("o_custkey", "w_lo", "w_hi", "wid"))
+    perm = torch.sort(wlo, stable=True).indices
+    perm = perm[torch.sort(key[perm], stable=True).indices]  # by (custkey, lo, position)
+    ks = key[perm]
+    first = torch.searchsorted(ks, raw["o_custkey"])
+    d = raw["o_orderdate"]
+    hits = []
+    for j in (0, 1):  # the customer's two windows in band order
+        w = perm[first + j]
+        hits.append((d >= wlo[w]) & (d <= whi[w]))
+    m = torch.stack(hits, 1)  # (orders, 2)
+    rows = torch.nonzero(m)  # row-major: by order, then band order
+    want_wid = wid[perm[first[rows[:, 0]] + rows[:, 1]]]
+    k = int(got.count)
+    check(not bool(ovf) and k == rows.shape[0], f"T5 windows: {k} rows, want {rows.shape[0]}")
+    check_exact(got["o_orderkey"][:k], _bits(raw["o_orderkey"])[rows[:, 0]].view(torch.uint32),
+                "T5 windows o_orderkey")  # gathered as the signed view
+    check_exact(got["wid"][:k], want_wid, "T5 windows wid")
+    both = int(m.all(1).sum())
+    return f"{k:,} pairs, {both:,} orders in both windows; bit-exact"
+
+
+def check_t5_unnest(values, out):
+    got, ovf = out
+    want = torch.repeat_interleave(values["v"], values["n"])
+    k = int(got.count)
+    check(not bool(ovf) and k == want.shape[0], "T5 UNNEST count")
+    check_exact(got["v"][:k], want, "T5 UNNEST values")
+    check_exact(got["n"][:k], torch.repeat_interleave(values["n"], values["n"]), "T5 UNNEST n")
+    return f"{U_VALUES:,} rows -> {k:,}; bit-exact"
+
+
+def table_path(gen):
+    """T1-T5: the relational facade at TPC-H SF10 on the card, each workload
+    checked once against its torch oracle with its K2 launches counted.
+    Returns the workloads (label -> (call, rows in)) for timing."""
+    raw = tpch_sf10(gen)
+    li, orders, customer = facade_tables(raw, gen)
+    raw["o_special"] = orders["o_special"]
+    tiers, windows, values = t5_inputs(raw, gen)
+    log(f"Table facade at SF10 on the card: {li.num_rows:,} lineitems, {orders.num_rows:,} "
+        f"orders, {customer.num_rows:,} customers")
+    work = {
+        "T1 Q1: filter, with_columns, aggregate by 2 string keys, sort_by":
+            (lambda: t1_q1(li), lambda g: check_t1(raw, g), 0, li.num_rows),
+        "T2 Q3: CUSTOMER ('BUILDING') join ORDERS join LINEITEM, aggregate, top_k(10)":
+            (lambda: t2_q3(li, orders, customer),
+             lambda g: check_t2(raw, li, orders, customer, g), 2,
+             li.num_rows + orders.num_rows + customer.num_rows),
+        "T3 Q13: CUSTOMER left join ORDERS, count(o_orderkey), aggregate, sort_by":
+            (lambda: t3_q13(orders, customer), lambda g: check_t3(raw, g), 1,
+             orders.num_rows + customer.num_rows),
+        "T4 7 window ops over ORDERS by o_custkey, o_orderdate; cumsum in one partition":
+            (lambda: t4_windows(orders), lambda g: check_t4(raw, g), 0, orders.num_rows),
+        "T5a ORDERS join_band 1024 disjoint price tiers (one candidate a row)":
+            (lambda: t5_tiers(orders, tiers), lambda g: check_t5_tiers(raw, tiers, g), 0,
+             orders.num_rows),
+        "T5b ORDERS join_band 2 date windows per customer on o_custkey (candidates > 1)":
+            (lambda: t5_windows(orders, windows), lambda g: check_t5_windows(raw, windows, g),
+             1, orders.num_rows + windows.num_rows),
+        "T5c Table.unnest of 1M rows, counts in [0, 128]":
+            (lambda: values.unnest("n", U_CAPACITY), lambda g: check_t5_unnest(values, g), 1,
+             U_VALUES),
+    }
+    for label, (call, verify, k2_calls, _) in work.items():
+        before = expand.LAUNCHES
+        got = call()
+        sync_table(got)
+        calls = expand.LAUNCHES - before
+        check(calls == k2_calls, f"{label}: {calls} K2 launches, expected {k2_calls}")
+        log(f"{label.split(':')[0].split()[0]}: matches the torch oracle, K2 launches {calls}; "
+            f"{verify(got)}")
+        del got
+    return ({label: (call, rows_in) for label, (call, _, _, rows_in) in work.items()},
+            {label.split()[0]: (call, k2) for label, (call, _, k2, _) in work.items() if k2})
+
+
+def sync_table(out):
+    t = out[0] if isinstance(out, tuple) else out
+    timing.sync(list(t._cols.values()))
 
 
 def main():
@@ -1426,7 +1835,8 @@ def main():
     log(f"join path: expand kernel calls {k2_launches}")
 
     time_join_path(work)
-    k2_rows, k2_err2 = expand_at_join_shapes(work)
+    k2_rows, k2_err2 = k2_at_shapes({label.split()[0]: (call, 1)
+                                     for label, (call, *_) in work.items()})
     del work
     profile_wrappers(gen)
 
@@ -1450,6 +1860,16 @@ def main():
         k1_ob[name], e = k1_against_plain(record_k1(call), name)
         k1_ob_err = max(k1_ob_err, e)
     del ob_work, t
+
+    # the relational facade at TPC-H SF10 (phase 9)
+    expand.LAUNCHES = 0
+    table_work, table_k2 = table_path(gen)
+    k2_table = expand.LAUNCHES
+    check(k2_table > 0, "the Table path never launched the expand kernel")
+    log(f"Table path: expand kernel calls {k2_table}")
+    time_workloads(table_work)
+    k2_table_rows, k2_err3 = k2_at_shapes(table_k2)
+    del table_work, table_k2
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
@@ -1471,8 +1891,9 @@ def main():
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/expand.cu",
         "replaces": "radix_sort_tpu/ops/expand.py:330",
-        "launches": k2_launches,
-        "max_abs_err": max(k2_err, k2_err2),
+        "launches": k2_launches + k2_table,
+        "launches_by_path": {"join": k2_launches, "table": k2_table},
+        "max_abs_err": max(k2_err, k2_err2, k2_err3),
         "ms": r_row["ms"],
         "plain_ms": r_row["plain_ms"],
         "bound_ms": r_row["bound_ms"],
@@ -1480,7 +1901,7 @@ def main():
         "library_ms": r_row["library_ms"],
         "shape": "R: the repeat call, one i32 column (torch.repeat_interleave computes "
                  "the same); every shape in calls",
-        "calls": k2_rows,
+        "calls": k2_rows + k2_table_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,16 +9,23 @@ sample-sort engine whose data movement is a CUDA kernel written for Hopper,
 ``searchsorted``, ``unique``, ``hash_join``, ``repeat``, whose expansion is
 a second such kernel, ``csrc/expand.cu``), the GROUP BY family
 (``hash_aggregate`` with every aggregation, multi-aggregates and ROLLUP
-levels) and the relational completions (``join_asof``, set operators,
-``quantiles``); the kernels are built at first use. Band joins, windows,
-tables, SQL and the multi-device layer are not ported yet (ROADMAP.md).
+levels), the relational completions (``join_asof``, set operators,
+``quantiles``), band joins (``band_join``), window functions (``window``)
+and the relational facade (``Table``, with NULL masks from ``nulls``,
+dictionary-encoded strings from ``strings`` and dates from ``dates``); the
+kernels are built at first use. ``Table`` puts its columns on the GPU
+unless it is given ``device="cpu"``. The lazy planner and SQL (``expr``,
+``plan``, ``sql``), ``Table.from_csv`` and the multi-device layer are not
+ported yet (ROADMAP.md).
 """
 
-from radix_sort_tpu_torch import config, keys
+from radix_sort_tpu_torch import config, dates, keys, nulls, strings
 from radix_sort_tpu_torch.ops.query import (
     AGGREGATIONS,
+    BAND_OPS,
     COMBINABLE_AGGREGATIONS,
     JOIN_HOWS,
+    band_join,
     filter,
     hash_aggregate,
     hash_aggregate_levels,
@@ -49,12 +56,20 @@ from radix_sort_tpu_torch.ops.sort import (
     sort_segments,
     top_k,
 )
+from radix_sort_tpu_torch.ops.window import WINDOW_OPS, window
+from radix_sort_tpu_torch.table import Table
 
 __version__ = "0.1.0"
 
 __all__ = [
     "config",
     "keys",
+    "nulls",
+    "strings",
+    "dates",
+    "Table",
+    "window",
+    "band_join",
     "sort",
     "argsort",
     "sort_pairs",
@@ -82,6 +97,8 @@ __all__ = [
     "AGGREGATIONS",
     "COMBINABLE_AGGREGATIONS",
     "JOIN_HOWS",
+    "BAND_OPS",
+    "WINDOW_OPS",
     "IMPLEMENTATIONS",
     "__version__",
 ]

@@ -1,9 +1,10 @@
 """Vectorized query operators: filter, searchsorted, unique, hash_join,
-repeat, and the aggregation family (hash_aggregate and its levels).
+band_join, repeat, and the aggregation family (hash_aggregate and its
+levels).
 
-Counterpart of ``radix_sort_tpu/ops/query.py`` (everything but band joins,
-ROADMAP.md). The names are the JAX package's, so each function's
-counterpart is found by name. Outputs are bit-identical to the reference's:
+Counterpart of ``radix_sort_tpu/ops/query.py``. The names are the JAX
+package's, so each function's counterpart is found by name. Outputs are
+bit-identical to the reference's:
 
   - ``filter``: predicate compaction as a stable 1-bit partition; kept rows
     keep their order, the result is the valid prefix plus a count.
@@ -11,6 +12,10 @@ counterpart is found by name. Outputs are bit-identical to the reference's:
     build side is sorted once, probes rank their key range, and matches
     expand into a static-capacity output (+ overflow flag) through kernel
     K2 (``ops/expand.py``).
+  - ``band_join``: non-equi join (``<``, ``<=``, ``>``, ``>=``, BETWEEN)
+    with an optional equality conjunct: one right-side sort, each left
+    row's matches one range of sorted positions from merge ranks, then the
+    join's expansion.
   - ``repeat``: ``np.repeat`` into a static-size output (UNNEST), on K2.
   - ``hash_aggregate``: GROUP BY as a stable sort by key, group-boundary
     marks, and segment reductions: scatter-adds and scatter min/max per
@@ -46,6 +51,7 @@ __all__ = [
     "COMBINABLE_AGGREGATIONS",
     "LEVEL_AGGREGATIONS",
     "append_unmatched_right",
+    "band_join",
     "expand_offsets",
     "filter",
     "hash_aggregate",
@@ -60,6 +66,7 @@ __all__ = [
     "searchsorted",
     "unique",
     "valid_agg",
+    "BAND_OPS",
     "JOIN_HOWS",
 ]
 
@@ -360,20 +367,27 @@ def _take(a, idx):
     return _signed(a)[idx].view(a.dtype)
 
 
+def _fit(a, capacity):
+    """``a`` cut or zero-padded to ``capacity`` rows."""
+    if a.shape[0] >= capacity:
+        return a[:capacity]
+    return torch.cat([a, a.new_zeros((capacity - a.shape[0],))])
+
+
 def _gid(first):
     """Segment id of every row: the count of run starts up to it, minus 1."""
     return torch.cumsum(first, 0, dtype=torch.int64) - 1
 
 
-def _run_bounds(first, pos, end=False):
-    """Each row's run start (or end) position, runs starting where ``first``
-    is True: the reference's forward running max (or reversed running min)
-    of the marked positions, as a min (max) per run over run ids. PyTorch's
-    cummin/cummax scan a long 1-D tensor in one row (PERF.md)."""
-    rid = _gid(first)
-    b = torch.zeros_like(pos).scatter_reduce_(0, rid, pos, "amax" if end else "amin",
-                                              include_self=False)
-    return b[rid]
+def _run_bounds(first, end=False):
+    """Each row's int32 run start (or end) position, runs starting where
+    ``first`` is True: the reference's forward running max (or reversed
+    running min) of the marked positions, as a lookup of the marked
+    positions by run id. PyTorch's cummin/cummax scan a long 1-D tensor in
+    one row, and a scatter min/max per run contends on one address when the
+    runs are few (PERF.md); ``nonzero`` costs one host sync."""
+    marks = _mark_last(first) if end else first
+    return torch.nonzero(marks).squeeze(1).to(torch.int32)[_gid(first)]
 
 
 def _segsum(x, gid):
@@ -513,15 +527,15 @@ def hash_aggregate(keys, values, agg: str = "sum", *, _positions=None):
         # occurrence among ties, both)
         idx = starts_c
         if agg == "argmax":
-            idx = _run_bounds(_mark_first([*sk, svw]), pos)[_clip(ends_c, 0, n - 1)]
+            idx = _run_bounds(_mark_first([*sk, svw]))[_clip(ends_c, 0, n - 1)]
         return _pack(out_keys), sposr[_clip(idx, 0, n - 1)].to(torch.int32), count
     # mode: the group's longest (key, value) run, ties to the first (the
     # smallest value). The reference's reversed segmented doubling scan over
     # (run length, value word), every row carrying its run's pair; group
     # start rows end up holding the whole group's best
     kv_first = _mark_first([*sk, svw])
-    run_len = _run_bounds(kv_first, pos, end=True) - _run_bounds(kv_first, pos) + 1
-    pend = _run_bounds(first, pos, end=True)
+    run_len = _run_bounds(kv_first, end=True) - _run_bounds(kv_first) + 1
+    pend = _run_bounds(first, end=True)
     best_l, best_w = run_len, svw
     s = 1
     while s < n:
@@ -797,16 +811,9 @@ def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner"):
         # filter, no expansion
         sel = (matches > 0) if how == "semi" else (matches == 0)
         *c_all, cnt = filter(sel, *lkws, *lvs)
-        n_l = lkws[0].shape[0]
-
-        def _fit(a):
-            if capacity >= n_l:
-                return torch.cat([a, a.new_zeros((capacity - n_l,))])
-            return a[:capacity]
-
         valid = torch.arange(capacity, device=dev) < cnt.clamp(max=capacity)
-        return _pack([_mask(valid, _fit(k), ZERO_LIMB) for k in c_all[:len(lkws)]],
-                     [_mask(valid, _fit(v)) for v in c_all[len(lkws):]],
+        return _pack([_mask(valid, _fit(k, capacity), ZERO_LIMB) for k in c_all[:len(lkws)]],
+                     [_mask(valid, _fit(v, capacity)) for v in c_all[len(lkws):]],
                      [torch.zeros((capacity,), dtype=rv.dtype, device=dev) for rv in rvs_l],
                      cnt.clamp(max=capacity), cnt > capacity)
 
@@ -986,16 +993,10 @@ def hash_join(left_keys, left_values, right_keys, right_values, *, capacity: int
             return _result(_limbs_to_cols(kw, specs), olv, orv, cnt, ovf)
         safe = lo.clamp(0, max(n_r, 1) - 1)
         *comp, cnt = filter(hi > lo, *lk_limbs, *lv_cols, *[rv[safe] for rv in rvs])
-
-        def _fit(a):
-            if a.shape[0] >= capacity:
-                return a[:capacity]
-            return torch.cat([a, a.new_zeros((capacity - a.shape[0],))])
-
         valid = torch.arange(capacity, device=dev) < cnt.clamp(max=capacity)
         nk, nlv = len(lk_limbs), len(lv_cols)
-        ks = [_mask(valid, _fit(a), ZERO_LIMB) for a in comp[:nk]]
-        vals = [_mask(valid, _fit(a)) for a in comp[nk:]]
+        ks = [_mask(valid, _fit(a, capacity), ZERO_LIMB) for a in comp[:nk]]
+        vals = [_mask(valid, _fit(a, capacity)) for a in comp[nk:]]
         return _result(_limbs_to_cols(ks, specs), vals[:nlv], vals[nlv:],
                        cnt.clamp(max=capacity), cnt > capacity)
 
@@ -1005,6 +1006,197 @@ def hash_join(left_keys, left_values, right_keys, right_values, *, capacity: int
         out_kw, out_lv, out_rv, count, overflow = append_unmatched_right(
             out_kw, out_lv, out_rv, count, overflow, rks, rvs, lo, hi, capacity=capacity)
     return _result(_limbs_to_cols(out_kw, specs), out_lv, out_rv, count, overflow)
+
+
+BAND_OPS = ("lt", "le", "gt", "ge", "between")
+
+
+def _limbs_le(a, b):
+    """Row-wise lexicographic ``a <= b`` over parallel big-endian limb lists
+    (rank space, so the comparison is the source dtype's total order)."""
+    le = a[-1] <= b[-1]
+    for x, y in zip(reversed(a[:-1]), reversed(b[:-1])):
+        le = (x < y) | ((x == y) & le)
+    return le
+
+
+def _seg_scan(ws, rn0, combine):
+    """Inclusive segmented scan of a limb list (Hillis-Steele doubling:
+    log2(n) elementwise sweeps): row i gets ``combine`` over its segment's
+    rows [start, i]. ``combine(cur, prev)`` maps two limb lists to one.
+    ``rn0`` is each row's 0-based offset in its segment; an element ``s``
+    back is in the segment iff ``rn0 >= s``, so the zero padding of the
+    shifted lists is never kept."""
+    n = ws[0].shape[0]
+    s = 1
+    while s < n:
+        prevs = [torch.cat([w.new_zeros((s,)), w[:-s]]) for w in ws]
+        inseg = rn0 >= s
+        ws = [torch.where(inseg, c, w) for c, w in zip(combine(ws, prevs), ws)]
+        s *= 2
+    return ws
+
+
+def _limbs_max(a, b):
+    """Row-wise lexicographic max of two limb lists (``b`` on ties)."""
+    le = _limbs_le(a, b)
+    return [torch.where(le, y, x) for x, y in zip(a, b)]
+
+
+def band_join(left_band, left_values, right_band, right_values, *, op: str, capacity: int,
+              left_equi=None, right_equi=None, how: str = "inner"):
+    """Non-equi (band / theta / interval) join.
+
+    Emits the (left, right) row pairs where the optional equality conjunct
+    matches and the band predicate holds::
+
+      op="lt":      l.x <  r.y         op="gt":  l.x >  r.y
+      op="le":      l.x <= r.y         op="ge":  l.x >= r.y
+      op="between": r.lo <= l.x <= r.hi
+
+    ``left_band`` is the left column x; ``right_band`` the right column y
+    (for "between" the ``(lo, hi)`` pair). Band columns share one dtype and
+    compare in its rank space (floats by total order). ``left_equi`` /
+    ``right_equi`` (parallel column lists) add an equality conjunct.
+
+    The right side sorts once by (equi..., band); each left row's matches
+    are one range of sorted positions from merge ranks, expanded by
+    :func:`join_expand` (kernel K2). "between" bounds the candidate range
+    below by a segmented running max of ``hi`` and above by the last
+    ``lo <= x`` row, then keeps the rows with ``x <= hi``; ``capacity``
+    must cover those candidates (equal to the matches when each equi
+    group's intervals do not interleave). When every left row has at most
+    one candidate, the candidate is gathered directly, without the
+    expansion; the reference chooses between the two on the device
+    (``lax.cond``), the port on the host, one sync each.
+
+    ``how``: "inner" / "left" / "semi" / "anti" for the inequality ops;
+    "between" is inner only. Returns ``(left_vals, right_vals, count,
+    overflow)``; rows [0, count) order by left row then right sorted
+    position.
+    """
+    if op not in BAND_OPS:
+        raise ValueError(f"op must be one of {BAND_OPS}, got {op!r}")
+    if op == "between":
+        if how != "inner":
+            raise ValueError(f'op="between" supports how="inner" only, got {how!r} '
+                             "(candidate post-filtering makes match counts inexact "
+                             "before expansion)")
+        if not (isinstance(right_band, (list, tuple)) and len(right_band) == 2):
+            raise ValueError('op="between" needs right_band=(lo, hi)')
+        band_cols_r = list(right_band)
+    else:
+        if how not in ("inner", "left", "semi", "anti"):
+            raise ValueError(f'band joins support how="inner"/"left"/"semi"/"anti", got {how!r}')
+        if isinstance(right_band, (list, tuple)):
+            raise ValueError(f'op={op!r} takes a single right band column '
+                             '(only "between" takes a (lo, hi) pair)')
+        band_cols_r = [right_band]
+    for c in band_cols_r:
+        if c.dtype != left_band.dtype:
+            raise TypeError(f"band columns must share one dtype, got {left_band.dtype} "
+                            f"vs {c.dtype}")
+    multi_lv = isinstance(left_values, (list, tuple))
+    lvs = list(left_values) if multi_lv else [left_values]
+    multi_rv = isinstance(right_values, (list, tuple))
+    rvs = list(right_values) if multi_rv else [right_values]
+    le_cols = list(left_equi) if left_equi is not None else []
+    re_cols = list(right_equi) if right_equi is not None else []
+    if len(le_cols) != len(re_cols) or any(a.dtype != b.dtype for a, b in zip(le_cols, re_cols)):
+        raise ValueError("left_equi and right_equi must match in count and dtypes")
+    n_l = left_band.shape[0]
+    n_r = band_cols_r[0].shape[0]
+    if any(c.shape[0] != n_l for c in (*le_cols, *lvs)):
+        raise ValueError("left columns must have equal length")
+    if any(c.shape[0] != n_r for c in (*re_cols, *rvs, *band_cols_r)):
+        raise ValueError("right columns must have equal length")
+    dev = left_band.device
+    lv_dt = [c.dtype for c in lvs]
+    rv_dt = [c.dtype for c in rvs]
+    lvs = [_signed(c) for c in lvs]
+    rvs = [_signed(c) for c in rvs]
+
+    def _result(lv_out, rv_out, count, overflow):
+        lv_out = [v.view(dt) for v, dt in zip(lv_out, lv_dt)]
+        rv_out = [v.view(dt) for v, dt in zip(rv_out, rv_dt)]
+        return (lv_out if multi_lv else lv_out[0], rv_out if multi_rv else rv_out[0],
+                count, overflow)
+
+    if n_l == 0:
+        return _result([torch.zeros((capacity,), dtype=c.dtype, device=dev) for c in lvs],
+                       [torch.zeros((capacity,), dtype=c.dtype, device=dev) for c in rvs],
+                       _i32(0, dev), torch.tensor(False, device=dev))
+
+    lx = K.encode_limbs(left_band)
+    le_limbs = _cols_to_limbs(le_cols)[0]
+    if n_r == 0:
+        # no right rows: nothing matches (left/anti still emit left rows)
+        lo = hi = torch.zeros((n_l,), dtype=torch.int32, device=dev)
+        rvs_s, rhi_s = [torch.zeros((1,), dtype=c.dtype, device=dev) for c in rvs], []
+    else:
+        ry = K.encode_limbs(band_cols_r[0])
+        re_limbs = _cols_to_limbs(re_cols)[0]
+        nk = len(re_limbs) + len(ry)
+        ride = list(rvs)
+        if op == "between":
+            ride += K.encode_limbs(band_cols_r[1])
+        srt = _stable_sort([*re_limbs, *ry, *ride], num_keys=nk)
+        rk_s = srt[:nk]
+        rvs_s = srt[nk:nk + len(rvs)]
+        rhi_s = srt[nk + len(rvs):]
+        # each left row's matches are one range of sorted-right positions:
+        #   lt: [rank_right(E, x), group_end)   le: [rank_left(E, x), group_end)
+        #   gt: [group_start, rank_left(E, x))  ge: [group_start, rank_right(E, x))
+        #   between: [rank_left(E, segcummax(hi)), rank_right(E, lo=x))
+        side = "left" if op in ("le", "gt") else "right"
+        v = merge_rank(rk_s, [*le_limbs, *lx], side=side)
+        if op == "between":
+            # rows before the group's first running max(hi) >= x cannot
+            # match; the running max does not decrease within a group, so
+            # (E, segcummax(hi)) is sorted and one merge rank bounds the
+            # candidates from below
+            pos = torch.arange(n_r, dtype=torch.int32, device=dev)
+            rn0 = pos - _run_bounds(_mark_first(rk_s[:len(re_limbs)])) if le_limbs else pos
+            cmh = _seg_scan(rhi_s, rn0, _limbs_max)
+            g = merge_rank([*rk_s[:len(re_limbs)], *cmh], [*le_limbs, *lx], side="left")
+        elif le_limbs:
+            g = merge_rank(rk_s[:len(re_limbs)], le_limbs,
+                           side="right" if op in ("lt", "le") else "left")
+        else:
+            g = (torch.full((n_l,), n_r, dtype=torch.int32, device=dev) if op in ("lt", "le")
+                 else torch.zeros((n_l,), dtype=torch.int32, device=dev))
+        lo, hi = (v, g) if op in ("lt", "le") else (g, v)
+        if op == "between":
+            # inverted intervals (hi < lo) match nothing but can push the
+            # running-max bound past the lo <= x bound: clamp the crossed
+            # ranges to empty, so no emit count goes negative
+            hi = torch.maximum(hi, lo)
+
+    if op == "between" and rhi_s:
+        if bool(((hi - lo) <= 1).all()):
+            # at most one candidate per left row: gather it, no expansion
+            cand = hi > lo
+            safe = lo.clamp(0, n_r - 1)
+            rv_g = [rv[safe] for rv in rvs_s]
+            keep = cand & _limbs_le(lx, [w[safe] for w in rhi_s])
+            *comp, cnt = filter(keep, *lvs, *rv_g)
+            valid = torch.arange(capacity, device=dev) < cnt.clamp(max=capacity)
+            comp = [_mask(valid, _fit(a, capacity)) for a in comp]
+            return _result(comp[:len(lvs)], comp[len(lvs):], cnt.clamp(max=capacity),
+                           cnt > capacity)
+        kout, lv_out, rv_out, count, overflow = join_expand(
+            lx, lvs, rvs_s + rhi_s, lo, hi, capacity=capacity, how=how)
+        rv_real, rhi_out = rv_out[:len(rvs)], rv_out[len(rvs):]
+        if bool(_limbs_differ(cmh, rhi_s).any()):
+            # some candidate may end before x: keep the rows with x <= hi
+            valid = torch.arange(capacity, dtype=torch.int32, device=dev) < count
+            *comp, count = filter(valid & _limbs_le(kout, rhi_out), *lv_out, *rv_real)
+            lv_out, rv_real = comp[:len(lvs)], comp[len(lvs):]
+        return _result(lv_out, rv_real, count, overflow)
+
+    _, lv_out, rv_out, count, overflow = join_expand(
+        lx, lvs, rvs_s + rhi_s, lo, hi, capacity=capacity, how=how)
+    return _result(lv_out, rv_out[:len(rvs)], count, overflow)
 
 
 def searchsorted(sorted_keys: torch.Tensor, queries: torch.Tensor,

@@ -361,3 +361,52 @@ def test_relational_on_card_matches_cpu(cuda):
     for method in ("lower", "higher", "nearest"):
         _same(rst.quantiles(rv.cuda(), [0, 0.3, 0.5, 1], method=method),
               rst.quantiles(rv, [0, 0.3, 0.5, 1], method=method), method)
+
+
+def _same_tables(g, c, what):
+    """Two Tables' ``to_numpy()`` equal: names, dtypes, values, NULL masks."""
+    a, b = g.to_numpy(), c.to_numpy()
+    assert list(a) == list(b), what
+    for name in a:
+        x, y = a[name], b[name]
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, name)
+        if isinstance(x, np.ma.MaskedArray):
+            assert np.array_equal(np.ma.getmaskarray(x), np.ma.getmaskarray(y)), (what, name)
+            x, y = np.ma.getdata(x), np.ma.getdata(y)
+        assert np.array_equal(x.view(np.uint8), y.view(np.uint8)), (what, name)
+
+
+@pytest.mark.cuda
+def test_table_join_and_band_join_on_card_match_cpu(cuda):
+    """Table.join (inner, left, lookup) and Table.join_band in its
+    several-candidate regime on the card against the same calls with
+    device="cpu": the same rows, and one K2 launch for each expanding join."""
+    rng = np.random.default_rng(7)
+    n_l, n_r = 40_000, 30_000
+    left = {"k": rng.integers(0, 20_000, n_l).astype(np.int64),
+            "s": rng.choice(np.array(["ant", "bee", "cat", "dog"]), n_l),
+            "d": rng.integers(0, 1000, n_l).astype(np.int32),
+            "x": np.ma.MaskedArray(rng.random(n_l), rng.random(n_l) < 0.1)}
+    right = {"k": rng.integers(0, 20_000, n_r).astype(np.int64),
+             "s": rng.choice(np.array(["bee", "cat", "eel"]), n_r),
+             "lo": rng.integers(0, 1000, n_r).astype(np.int32),
+             "y": rng.integers(0, 2**32, n_r, dtype=np.uint64).astype(np.uint32)}
+    right["hi"] = (right["lo"] + rng.integers(0, 200, n_r)).astype(np.int32)
+    tl, tr = (rst.Table(c) for c in (left, right))
+    assert tl.device.type == "cuda"
+    cl, cr = (rst.Table(c, device="cpu") for c in (left, right))
+    tr, cr = (t.filter(lambda q: q["lo"] % 7 != 0) for t in (tr, cr))
+    for on, how in (("k", "inner"), (["s", "k"], "left"), ("k", "lookup")):
+        before = expand.LAUNCHES
+        g, g_ovf = tl.join(tr, on, capacity=1 << 17, how=how)
+        c, c_ovf = cl.join(cr, on, capacity=1 << 17, how=how)
+        if how != "lookup":
+            assert expand.LAUNCHES == before + 1, how
+        assert bool(g_ovf) == bool(c_ovf)
+        _same_tables(g, c, f"join {how}")
+    before = expand.LAUNCHES
+    g, g_ovf = tl.join_band(tr, "d", "between", ("lo", "hi"), on="k", capacity=1 << 17)
+    c, c_ovf = cl.join_band(cr, "d", "between", ("lo", "hi"), on="k", capacity=1 << 17)
+    assert expand.LAUNCHES == before + 1  # several candidates a row: the expansion
+    assert not bool(g_ovf) and not bool(c_ovf)
+    _same_tables(g, c, "join_band between")
