@@ -54,7 +54,16 @@ together) and drives the port's two paths:
     device costs, peak memory and K2 launches; the joins, the band join
     with several candidates and the UNNEST go through K2, which is then
     held bit-exact against its plain version and timed beside it and its
-    bound at each of those expansions' shapes.
+    bound at each of those expansions' shapes;
+  * the SQL layer at TPC-H scale factor 10 (phase 10): S1 Q1, S2 Q3, S3
+    Q13 and S4 Q18 as SQL text through ``rst.sql(text, tables).collect()``
+    over phase 9's tables, each with its optimized plan printed, checked
+    against its torch oracle, its unoptimized plan checked against the
+    optimized one, timed as phase 9 times its workloads, and K2 held
+    bit-exact against its plain version and timed at every expansion the
+    SQL plans make. Phase 2 also runs the LSD ladder's engines
+    (``implementation="xla_argsort"`` / ``"xla_rank"``) on 2**20 uint32 and
+    uint64 keys against a stable ``torch.sort``.
 
 Each path runs with its kernel's launch count set to 0 just before and
 read just after, and the run fails unless the path went through the
@@ -102,6 +111,7 @@ R_CAPACITY = 1 << 26  # counts uniform in [0, 128]: ~64M rows
 SF10_PARTS = 2_000_000  # PART 200k x SF, PARTSUPP 4 rows per part
 SF10_SUPPLIERS = 100_000  # S = 10k x SF in the PS_SUPPKEY formula
 O2_ROWS = MAIN_ROWS[0]  # 31.25M uniform (u64 hi, u64 lo) keys
+XLA_ROWS = 1 << 20  # the LSD ladder's engines (phase 2)
 
 
 def _days(y, m, d):
@@ -359,6 +369,25 @@ def main_path(gen):
     check(torch.equal(sv, perm), "step_uniform payload order (stability)")
     check(torch.equal(sk.view(torch.int64), k.view(torch.int64)[perm]), "step_uniform keys")
     log(f"sort_pairs(step_uniform 3 keys u64, idx) n={n:,}: stable, bit-exact")
+
+    # the LSD ladder (ops/xla_radix.py, stock tensor ops): both engines on
+    # 2**20 uniform keys; xla_rank holds a (n, 16) one-hot per pass
+    n = XLA_ROWS
+    idx = torch.arange(n, dtype=torch.int64, device=DEV)
+    for dt in (torch.uint32, torch.uint64):
+        k = dist.key_uniform(gen, n, dt)
+        w = keys.encode(k)
+        perm = torch.sort(w, stable=True).indices
+        for impl in ("xla_argsort", "xla_rank"):
+            check(torch.equal(keys.encode(rst.sort(k, implementation=impl)), w[perm]),
+                  f"sort {impl} {dt}")
+            check(torch.equal(rst.argsort(k, implementation=impl), perm), f"argsort {impl} {dt}")
+            sk, sv = rst.sort_pairs(k, idx, implementation=impl)
+            check(torch.equal(keys.encode(sk), w[perm]) and torch.equal(sv, perm),
+                  f"sort_pairs {impl} {dt}")
+            ms = median(timing.cuda_time_ms(lambda: rst.sort(k, implementation=impl), runs=3))
+            log(f"{impl} {str(dt).replace('torch.', '')} n={n:,}: sort, argsort and sort_pairs "
+                f"bit-exact vs stable torch.sort; sort {ms:.3f} ms")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1797,6 +1826,148 @@ def sync_table(out):
     timing.sync(list(t._cols.values()))
 
 
+# ---------------------------------------------------------------- phase 10
+
+# TPC-H Q1, Q3, Q13 and Q18 (2.4.1, 2.4.3, 2.4.13, 2.4.18) as SQL text over
+# phase 9's tables, with their substitution parameters. The planner's
+# namespace is flat and an equi-join renames the right key onto the left's
+# name, so Q3 groups by o_orderkey (equal to l_orderkey after the join).
+S_QUERIES = {
+    "S1": ("Q1", "SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty, "
+           "SUM(l_extendedprice) AS sum_base_price, "
+           "SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price, "
+           "SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge, "
+           "AVG(l_quantity) AS avg_qty, AVG(l_extendedprice) AS avg_price, "
+           "AVG(l_discount) AS avg_disc, COUNT(*) AS count_order FROM lineitem "
+           "WHERE l_shipdate <= DATE '1998-09-02' GROUP BY l_returnflag, l_linestatus "
+           "ORDER BY l_returnflag, l_linestatus", {}),
+    "S2": ("Q3", "SELECT o_orderkey, SUM(l_extendedprice * (1 - l_discount)) AS revenue, "
+           "o_orderdate, o_shippriority FROM customer "
+           "JOIN orders ON c_custkey = o_custkey JOIN lineitem ON o_orderkey = l_orderkey "
+           "WHERE c_mktsegment = 'BUILDING' AND o_orderdate < DATE '1995-03-15' "
+           "AND l_shipdate > DATE '1995-03-15' "
+           "GROUP BY o_orderkey, o_orderdate, o_shippriority "
+           "ORDER BY revenue DESC, o_orderdate LIMIT 10", {"capacity": 1 << 26}),
+    "S3": ("Q13", "SELECT c_count, COUNT(*) AS custdist FROM "
+           "(SELECT c_custkey, COUNT(o_orderkey) AS c_count FROM customer "
+           "LEFT OUTER JOIN (SELECT o_orderkey, o_custkey FROM orders WHERE NOT o_special) o "
+           "ON c_custkey = o_custkey GROUP BY c_custkey) AS c_orders "
+           "GROUP BY c_count ORDER BY custdist DESC, c_count DESC", {"capacity": T3_CAPACITY}),
+    "S4": ("Q18", "SELECT c_custkey, o_orderkey, o_orderdate, o_totalprice, "
+           "SUM(l_quantity) AS sum_qty FROM customer "
+           "JOIN orders ON c_custkey = o_custkey JOIN lineitem ON o_orderkey = l_orderkey "
+           "WHERE o_orderkey IN (SELECT l_orderkey FROM lineitem GROUP BY l_orderkey "
+           "HAVING SUM(l_quantity) > 300) "
+           "GROUP BY c_custkey, o_orderkey, o_orderdate, o_totalprice "
+           "ORDER BY o_totalprice DESC, o_orderdate LIMIT 100", {"capacity": 1 << 26}),
+}
+S_FLOATS = {"S1": ("sum_base_price", "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
+                   "avg_disc"),
+            "S2": ("revenue",), "S3": (), "S4": ()}
+
+
+def check_s4(raw, got):
+    """Q18 against phase 8's oracle: sum(l_quantity) per order by
+    torch.unique + index_add_, the orders above 300 with their customer,
+    date and price, ordered as the query's stable sort leaves them (by
+    price desc, then date, then the group keys (c_custkey, o_orderkey))."""
+    lk = _rank(raw["l_orderkey"])
+    uk, inv = torch.unique(lk, return_inverse=True)
+    sums = torch.zeros_like(uk).index_add_(0, inv, raw["l_quantity"].to(torch.int64))
+    keep = sums > 300
+    kk, ks = uk[keep], sums[keep]
+    o_sorted, o_idx = torch.sort(_rank(raw["o_orderkey"]))
+    at = torch.searchsorted(o_sorted, kk)
+    check(torch.equal(o_sorted[at], kk), "S4: every key an order")
+    pos = o_idx[at]
+    tp, od, ck = raw["o_totalprice"][pos], raw["o_orderdate"][pos], raw["o_custkey"][pos]
+    perm = torch.sort(ck, stable=True).indices  # kk ascending: ties by (custkey, orderkey)
+    perm = perm[torch.sort(od[perm], stable=True).indices]
+    perm = perm[torch.sort(tp[perm], stable=True, descending=True).indices][:100]
+    k = int(got.count)
+    check(k == min(100, kk.shape[0]), "S4 row count")
+    check_exact(got["o_totalprice"][:k], tp[perm], "S4 o_totalprice")
+    check_exact(got["o_orderdate"][:k], od[perm], "S4 o_orderdate")
+    check_exact(got["o_orderkey"][:k], kk[perm].to(torch.int32).view(torch.uint32),
+                "S4 o_orderkey")
+    check_exact(got["c_custkey"][:k], ck[perm], "S4 c_custkey")
+    check_exact(got["sum_qty"][:k], ks[perm].to(torch.int32), "S4 sum_qty")
+    return f"{kk.shape[0]:,} orders above 300 of {uk.shape[0]:,}; top {k} bit-exact"
+
+
+def _s_check(name, raw, li, orders, customer, got, ovf):
+    check(not bool(ovf), f"{name}: a join overflowed its capacity")
+    if name == "S1":
+        return check_t1(raw, got)
+    if name == "S2":
+        return check_t2(raw, li, orders, customer,
+                        (got.rename({"o_orderkey": "l_orderkey"}), (ovf,)))
+    if name == "S3":
+        return check_t3(raw, (got, ovf))
+    return check_s4(raw, got)
+
+
+def same_result(name, a, b):
+    """The optimized and the unoptimized plan's results: the same columns,
+    row count and, but for the float sums (each already held to its bound
+    by the oracle), the same bits."""
+    check(a.column_names == b.column_names, f"{name}: optimized columns {a.column_names} "
+          f"!= unoptimized {b.column_names}")
+    k = int(a.count) if a.count is not None else a.num_rows
+    kb = int(b.count) if b.count is not None else b.num_rows
+    check(k == kb, f"{name}: optimized {k} rows != unoptimized {kb}")
+    for c in a.column_names:
+        if c not in S_FLOATS[name]:
+            check_exact(a[c][:k], b[c][:k], f"{name} {c}: optimized vs unoptimized plan")
+
+
+def sql_path(gen):
+    """S1-S4: TPC-H Q1, Q3, Q13 and Q18 as SQL text through ``rst.sql(text,
+    tables).collect()`` over the phase-9 Tables at SF10, each checked against
+    its torch oracle, its unoptimized plan against its optimized one, with
+    its K2 launches counted. Returns the workloads (label -> (call, rows
+    in)) for timing and those with expansions (name -> (call, K2 calls))."""
+    raw = tpch_sf10(gen)
+    li, orders, customer = facade_tables(raw, gen)
+    raw["o_special"] = orders["o_special"]
+    tables = {"lineitem": li, "orders": orders, "customer": customer}
+    rows_in = {"S1": li.num_rows, "S2": li.num_rows + orders.num_rows + customer.num_rows,
+               "S3": orders.num_rows + customer.num_rows,
+               "S4": 2 * li.num_rows + orders.num_rows + customer.num_rows}
+    log(f"SQL at SF10 on the card: {li.num_rows:,} lineitems, {orders.num_rows:,} orders, "
+        f"{customer.num_rows:,} customers")
+    work, k2 = {}, {}
+    for name, (q, text, kw) in S_QUERIES.items():
+        plan = rst.sql(text, tables, **kw)
+        plan_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rst.sql(text, tables, **kw).optimized()
+            plan_ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"{name} TPC-H {q}: {text}")
+        log(f"{name} optimized plan (host planning, parse and optimize: median "
+            f"{median(plan_ms):.3f} ms of 5):\n" + plan.explain())
+        before = expand.LAUNCHES
+        got, ovf = plan.collect(return_overflow=True)
+        sync_table(got)
+        calls = expand.LAUNCHES - before
+        log(f"{name}: matches the torch oracle, K2 launches {calls}; "
+            f"{_s_check(name, raw, li, orders, customer, got, ovf)}")
+        unopt, uovf = plan.collect(optimize_plan=False, return_overflow=True)
+        _s_check(name, raw, li, orders, customer, unopt, uovf)
+        same_result(name, got, unopt)
+        log(f"{name}: the unoptimized plan matches the oracle and the optimized plan")
+        del got, unopt
+
+        def call(text=text, kw=kw):
+            return rst.sql(text, tables, **kw).collect()
+
+        work[f"{name} TPC-H {q} as SQL"] = (call, rows_in[name])
+        if calls:
+            k2[name] = (call, calls)
+    return work, k2
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
@@ -1870,6 +2041,16 @@ def main():
     time_workloads(table_work)
     k2_table_rows, k2_err3 = k2_at_shapes(table_k2)
     del table_work, table_k2
+
+    # the SQL path at TPC-H SF10 (phase 10)
+    expand.LAUNCHES = 0
+    sql_work, sql_k2 = sql_path(gen)
+    k2_sql = expand.LAUNCHES
+    check(k2_sql > 0, "the SQL path never launched the expand kernel")
+    log(f"SQL path: expand kernel calls {k2_sql}")
+    time_workloads(sql_work)
+    k2_sql_rows, k2_err4 = k2_at_shapes(sql_k2)
+    del sql_work, sql_k2
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
@@ -1891,9 +2072,9 @@ def main():
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/expand.cu",
         "replaces": "radix_sort_tpu/ops/expand.py:330",
-        "launches": k2_launches + k2_table,
-        "launches_by_path": {"join": k2_launches, "table": k2_table},
-        "max_abs_err": max(k2_err, k2_err2, k2_err3),
+        "launches": k2_launches + k2_table + k2_sql,
+        "launches_by_path": {"join": k2_launches, "table": k2_table, "sql": k2_sql},
+        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4),
         "ms": r_row["ms"],
         "plain_ms": r_row["plain_ms"],
         "bound_ms": r_row["bound_ms"],
@@ -1901,7 +2082,7 @@ def main():
         "library_ms": r_row["library_ms"],
         "shape": "R: the repeat call, one i32 column (torch.repeat_interleave computes "
                  "the same); every shape in calls",
-        "calls": k2_rows + k2_table_rows,
+        "calls": k2_rows + k2_table_rows + k2_sql_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,14 +12,18 @@ a second such kernel, ``csrc/expand.cu``), the GROUP BY family
 levels), the relational completions (``join_asof``, set operators,
 ``quantiles``), band joins (``band_join``), window functions (``window``)
 and the relational facade (``Table``, with NULL masks from ``nulls``,
-dictionary-encoded strings from ``strings`` and dates from ``dates``); the
-kernels are built at first use. ``Table`` puts its columns on the GPU
-unless it is given ``device="cpu"``. The lazy planner and SQL (``expr``,
-``plan``, ``sql``), ``Table.from_csv`` and the multi-device layer are not
+dictionary-encoded strings from ``strings`` and dates from ``dates``), the
+query-language layer (column expressions ``col`` / ``lit`` / ``where`` /
+... from ``expr``, the lazy planner behind ``Table.lazy()`` in ``plan``,
+and ``sql()``) and the LSD ladder of ``ops/xla_radix`` as the
+``"xla_argsort"`` / ``"xla_rank"`` engines; the kernels are built at first
+use. ``Table`` puts its columns on the GPU unless it is given
+``device="cpu"``. ``Table.from_csv`` and the multi-device layer are not
 ported yet (ROADMAP.md).
 """
 
 from radix_sort_tpu_torch import config, dates, keys, nulls, strings
+from radix_sort_tpu_torch.expr import coalesce, col, concat, lit, null, nullif, udf, where
 from radix_sort_tpu_torch.ops.query import (
     AGGREGATIONS,
     BAND_OPS,
@@ -57,9 +61,20 @@ from radix_sort_tpu_torch.ops.sort import (
     top_k,
 )
 from radix_sort_tpu_torch.ops.window import WINDOW_OPS, window
+from radix_sort_tpu_torch.sql import SqlError, sql
 from radix_sort_tpu_torch.table import Table
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy, as in the JAX package: the planner loads on first use
+    if name == "LazyTable":
+        from radix_sort_tpu_torch.plan import LazyTable
+
+        return LazyTable
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "config",
@@ -68,6 +83,17 @@ __all__ = [
     "strings",
     "dates",
     "Table",
+    "LazyTable",
+    "col",
+    "lit",
+    "udf",
+    "where",
+    "concat",
+    "coalesce",
+    "nullif",
+    "null",
+    "sql",
+    "SqlError",
     "window",
     "band_join",
     "sort",

@@ -15,9 +15,11 @@ traits on slices (``RadixSort::radix_sort``, mod.rs:18-20, and the
     counting_sort(x)           -- single-pass counting sort for uint8
 
 ``implementation`` selects an engine: "comparator" and "oracle" run the
-stable ``torch.sort``; "pallas" runs the sample sort on the hand-written
-CUDA kernel (ops/pallas_sort.py); "auto" follows the active config. All
-engines produce bit-identical output. Results stay on the input's device.
+stable ``torch.sort``; "xla_argsort" and "xla_rank" run the LSD ladder of
+ops/xla_radix.py in stock tensor ops (a stable argsort per digit, or a
+one-hot histogram, scan and scatter per digit: pedagogical sizes); "pallas"
+runs the sample sort on the hand-written CUDA kernel (ops/pallas_sort.py);
+"auto" follows the active config. All engines produce bit-identical output. Results stay on the input's device.
 """
 
 from __future__ import annotations
@@ -62,10 +64,20 @@ _ENGINES = {
         lambda w: torch.sort(w, stable=True).values,
         lambda w: torch.argsort(w, stable=True),
     ),
+    "xla_argsort": (
+        xla_radix.radix_sort_words_argsort,
+        xla_radix.radix_argsort_words_argsort,
+    ),
+    "xla_rank": (
+        xla_radix.radix_sort_words_rank,
+        xla_radix.radix_argsort_words_rank,
+    ),
     "pallas": (pallas_sort.sort_words, pallas_sort.argsort_words),
 }
 
-IMPLEMENTATIONS = ("auto", "comparator", "oracle", "pallas")
+IMPLEMENTATIONS = (
+    "auto", "comparator", "oracle", "xla_argsort", "xla_rank", "pallas",
+)
 
 
 def _resolve(implementation: str) -> str:
@@ -134,7 +146,7 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor, *,
         srt = torch.sort(_dir(K.encode(keys), descending), stable=True)
         return K.decode(_dir(srt.values, descending), keys.dtype), values[srt.indices]
     perm = argsort(keys, descending=descending, implementation=impl)
-    return keys[perm], values[perm]
+    return _take(keys, perm), _take(values, perm)
 
 
 def counting_sort(x: torch.Tensor) -> torch.Tensor:

@@ -33,9 +33,11 @@ joins, set operators and ``concat`` unify the two dictionaries first.
 microseconds (``dates.py``). Nullable columns carry hidden bool masks
 (``nulls.py``).
 
-Not ported yet (ROADMAP.md): ``Table.from_csv`` (it needs ``native/`` and
-``utils/io.py``), ``Table.lazy`` (``plan.py``) and ``Expr`` arguments to
-``with_columns`` / ``filter`` / ``aggregate(where=)`` (``expr.py``).
+Column expressions (``expr.py``) are accepted by ``with_columns``,
+``filter`` and the ``where=`` of ``aggregate`` / ``aggregate_sets``;
+``Table.lazy()`` starts a deferred pipeline (``plan.py``), which is also what
+``sql()`` builds. Not ported yet (ROADMAP.md): ``Table.from_csv`` (it needs
+``native/`` and ``utils/io.py``).
 """
 
 from __future__ import annotations
@@ -341,11 +343,21 @@ class Table:
         :class:`~radix_sort_tpu_torch.nulls.MaskedColumn`,
         :class:`~radix_sort_tpu_torch.strings.DictColumn`, scalars (broadcast
         to every row) or callables taking this Table and returning one of
-        those."""
+        those, or :class:`~radix_sort_tpu_torch.expr.Expr` trees (evaluated
+        against this Table; string-valued ones keep their dictionary)."""
+        from radix_sort_tpu_torch.expr import Expr
+
         cols = dict(self._cols)
         dicts = dict(self._dicts)
         for n, c in named.items():
-            if callable(c) and not torch.is_tensor(c):
+            if isinstance(c, Expr):
+                sr = c.string_result(self)
+                if sr is not None:
+                    c = S.DictColumn(*sr)
+                else:
+                    v, em = c.evaluate_masked(self)
+                    c = v if em is None else NL.MaskedColumn(v, em)
+            elif callable(c) and not torch.is_tensor(c):
                 c = c(self)
             m = None
             if isinstance(c, S.DictColumn):
@@ -387,10 +399,15 @@ class Table:
         return w if flag is None else (flag | w)
 
     def _eval_pred(self, mask):
-        """A WHERE predicate (bool column, callable taking this Table, or
-        MaskedColumn) -> a plain bool row mask; a nullable predicate keeps
-        only the rows where it is known TRUE (SQL WHERE)."""
-        if callable(mask) and not torch.is_tensor(mask):
+        """A WHERE predicate (bool column, :class:`Expr`, callable taking this
+        Table, or MaskedColumn) -> a plain bool row mask; a nullable
+        predicate keeps only the rows where it is known TRUE (SQL WHERE)."""
+        from radix_sort_tpu_torch.expr import Expr
+
+        if isinstance(mask, Expr):
+            v, m = mask.evaluate_masked(self)
+            mask = v if m is None else (v & ~m)
+        elif callable(mask) and not torch.is_tensor(mask):
             mask = mask(self)
         if isinstance(mask, NL.MaskedColumn):
             mask = (_tensor(mask.values, self._dev).to(torch.bool)
@@ -401,8 +418,9 @@ class Table:
         return mask
 
     def filter(self, mask) -> "Table":
-        """Rows where ``mask`` holds (a bool column, or a callable taking
-        this Table), compacted to the front in original order."""
+        """Rows where ``mask`` holds (a bool column, an :class:`Expr`, or a
+        callable taking this Table), compacted to the front in original
+        order."""
         mask = self._eval_pred(mask)
         if self._count is not None:
             mask = mask & self.valid_mask()
@@ -1253,6 +1271,17 @@ class Table:
             r = torch.floor(x + 0.5)
         idx = torch.minimum(r.to(torch.int32).clamp(min=0), (eff_count - 1).clamp(min=0))
         return Q._take(svals, idx.to(torch.int64))
+
+    # ---- deferred execution ---------------------------------------------
+
+    def lazy(self):
+        """A :class:`~radix_sort_tpu_torch.plan.LazyTable` rooted at this
+        table: record the pipeline as a logical plan, optimize
+        (filter/sort/window fusion, sort+limit -> top_k, projection
+        pruning), execute on ``collect()``."""
+        from radix_sort_tpu_torch.plan import LazyTable, Source
+
+        return LazyTable(Source(self))
 
     # ---- materialization ------------------------------------------------
 

@@ -410,3 +410,98 @@ def test_table_join_and_band_join_on_card_match_cpu(cuda):
     assert expand.LAUNCHES == before + 1  # several candidates a row: the expansion
     assert not bool(g_ovf) and not bool(c_ovf)
     _same_tables(g, c, "join_band between")
+
+
+@pytest.mark.cuda
+def test_sql_join_on_card_matches_cpu(cuda):
+    """A SQL join with a computed column, a WHERE over both sides, GROUP BY
+    and ORDER BY, on CUDA tables against the same query on CPU tables: the
+    same rows, every expanding join launching K2, and the expression
+    layer's uint32 arithmetic and comparisons running on the card."""
+    rng = np.random.default_rng(11)
+    n_o, n_c = 30_000, 4_000
+    orders = {"o_key": np.arange(n_o, dtype=np.uint32) * 3,
+              "o_cust": rng.integers(0, n_c, n_o).astype(np.int64),
+              "o_price": np.round(rng.random(n_o) * 1000, 2),
+              "o_flag": rng.choice(np.array(["A", "N", "R"]), n_o)}
+    custs = {"c_cust": np.arange(n_c, dtype=np.int64),
+             "c_seg": rng.choice(np.array(["BUILDING", "MACHINERY"]), n_c),
+             "c_bal": np.ma.MaskedArray(rng.integers(-500, 500, n_c).astype(np.int32),
+                                        rng.random(n_c) < 0.1)}
+    q = ("SELECT c_seg, o_flag, COUNT(*) AS n, SUM(o_price * 2) AS p2, "
+         "MAX(o_key % 7 + 1) AS mk FROM custs JOIN orders ON c_cust = o_cust "
+         "WHERE c_bal > -100 AND o_key >= 300 GROUP BY c_seg, o_flag "
+         "ORDER BY c_seg, o_flag")
+    gpu = {"orders": rst.Table(orders), "custs": rst.Table(custs)}
+    cpu = {"orders": rst.Table(orders, device="cpu"), "custs": rst.Table(custs, device="cpu")}
+    before = expand.LAUNCHES
+    g, g_ovf = rst.sql(q, gpu, capacity=1 << 16).collect(return_overflow=True)
+    assert expand.LAUNCHES > before
+    c, c_ovf = rst.sql(q, cpu, capacity=1 << 16).collect(return_overflow=True)
+    assert not bool(g_ovf) and not bool(c_ovf) and g_ovf.device.type == "cuda"
+    a, b = g.to_numpy(), c.to_numpy()
+    assert list(a) == list(b)
+    for name in a:
+        assert a[name].dtype == b[name].dtype, name
+        if name == "p2":  # a float sum: the order of additions may differ
+            np.testing.assert_allclose(a[name], b[name], rtol=n_o * 2.0 ** -53)
+        else:
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_expressions_on_card_match_cpu(cuda):
+    """The expression layer on CUDA tables against the same expressions on
+    CPU tables, bit for bit: unsigned arithmetic, comparisons and casts,
+    true division by a scalar (correctly rounded, not a multiply by the
+    reciprocal), float floor division, min/max and sign, NULL masks, CASE
+    and string nodes."""
+    from radix_sort_tpu_torch import expr as E
+
+    rng = np.random.default_rng(5)
+    n = 10_000
+    cols = {"u32": rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+            "u64": rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True),
+            "i32": rng.integers(-2**31, 2**31, n).astype(np.int32),
+            "f64": rng.standard_normal(n) * 100,
+            "f32": (rng.standard_normal(n) * 100).astype(np.float32),
+            "b": rng.random(n) < 0.5,
+            "m": np.ma.MaskedArray(rng.integers(-50, 50, n).astype(np.int32),
+                                   rng.random(n) < 0.2),
+            "s": rng.choice(np.array(["ant", "bee", "cat"]), n)}
+    cols["f64"][:4] = [0.0, -0.0, np.inf, np.nan]
+    gpu, cpu = rst.Table(cols), rst.Table(cols, device="cpu")
+    exprs = [
+        E.col("u32") + 1, E.col("u32") * E.col("u32"), -E.col("u32"), E.col("u32") // 7,
+        E.col("u32") % 9, E.col("u32") >> 3, E.col("u32") < 2**31, E.col("u32").maximum(5),
+        E.col("u64") + E.col("u64"), E.col("u64") // 1000, E.col("u64") % 1000,
+        E.col("u64") >> 60, E.col("u64") > E.col("u64") // 2, E.col("u64").minimum(7),
+        E.col("u32") - E.col("i32"), E.col("u64") + E.col("i32"), E.col("u32") / 3,
+        E.col("i32") // 7, E.col("i32") % -5, E.col("f64") / E.col("f32"), 1.5 / E.col("f64"),
+        E.col("f64") // 3.0, E.col("f64") % -2.5, E.col("f64").minimum(0.0),
+        E.col("f64").sign(), E.col("f64").sqrt(), E.col("f32") * 2.5,
+        E.col("i32").cast("uint32"), E.col("i32").cast("uint64"), E.col("u32").cast("int64"),
+        E.col("u64").cast("float64"), E.col("u64").cast("float32"), E.col("u32").cast("float32"),
+        E.col("f32").abs().cast("uint32"), E.col("f32").abs().cast("uint64"),
+        E.col("b").cast("uint32"), E.col("u32").cast("bool"), E.col("u64").sign(),
+        E.col("m") * 2 + 1, E.coalesce(E.col("m"), 0), E.nullif(E.col("m"), 3),
+        E.where(E.col("b"), E.col("u32"), E.col("u64")), E.where(E.col("m") > 0, 1, 2.5),
+        (E.col("m") > 0) | E.col("b"), E.col("s") < "bee", E.col("s").like("%a%"),
+        E.col("s").upper().length(),
+    ]
+    for e in exprs:
+        gv, gm = e.evaluate_masked(gpu)
+        cv, cm = e.evaluate_masked(cpu)
+        assert gv.dtype == cv.dtype and gv.device.type == "cuda", repr(e)
+        assert (gm is None) == (cm is None), repr(e)
+        keep = torch.ones(n, dtype=torch.bool) if cm is None else ~cm
+        if gm is not None:
+            assert torch.equal(gm.cpu(), cm), repr(e)
+        g, c = gv.cpu()[keep], cv[keep]
+        if c.dtype.is_floating_point:
+            nan = torch.isnan(c)
+            assert torch.equal(torch.isnan(g), nan), repr(e)
+            g, c = g[~nan], c[~nan]
+        size = torch.empty((), dtype=c.dtype).element_size()
+        as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[size]
+        assert torch.equal(g.view(as_int), c.view(as_int)), repr(e)

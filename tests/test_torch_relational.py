@@ -195,11 +195,10 @@ def test_quantiles_errors():
 
 
 def test_package_exports_match_reference():
-    """The port exports every public name of the JAX package but the ones
-    still to port (the distributed table, expressions, the lazy planner,
-    SQL), and lists the ``nulls`` and ``dates`` modules beside ``strings``
-    (the JAX package has them as submodules only)."""
-    unported = {"DistTable", "LazyTable", "col", "lit", "udf", "where", "concat",
-                "coalesce", "nullif", "null", "sql", "SqlError"}
+    """The port exports every public name of the JAX package but the one
+    still to port (the distributed table), and lists the ``nulls`` and
+    ``dates`` modules beside ``strings`` (the JAX package has them as
+    submodules only)."""
+    unported = {"DistTable"}
     assert set(jrst.__all__) - unported == set(trst.__all__) - {"nulls", "dates"}
     assert all(hasattr(trst, name) for name in trst.__all__)
