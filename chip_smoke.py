@@ -61,7 +61,27 @@ together) and drives the port's two paths:
     against its torch oracle, its unoptimized plan checked against the
     optimized one, timed as phase 9 times its workloads, and K2 held
     bit-exact against its plain version and timed at every expansion the
-    SQL plans make. Phase 2 also runs the LSD ladder's engines
+    SQL plans make;
+  * the distributed layer (phase 11) on a mesh of 4 slots on the card
+    (``parallel/``: the slots share the process, the exchange is
+    device-local copies): D1 ``distributed_sort_pairs`` of 250M uniform
+    (u64, u64) rows, and at 31.25M rows the all-gather and pipelined
+    exchanges and an 8-slot mesh, each bit-exact slot by slot against a
+    stable ``torch.sort`` with every count within ``exchange_capacity``;
+    D2 step-uniform and all-equal keys, and a ``capacity=`` override whose
+    fallback is exact; D3 J1 and J2 as ``distributed_hash_join`` (K2 once
+    per slot) against the single-device ``rst.hash_join`` as multisets of
+    rows, and a forced hot-key fallback; D4 Q1's multi-aggregate and Q18's
+    sum by l_orderkey against phase 8's oracles; D5 top-k, DISTINCT,
+    quantiles, a filter, an UNNEST (K2 once per slot) and the three set
+    operators against torch oracles. Each is timed beside its
+    single-device call, with device busy time and the exchange's and the
+    all-gathers' shares of it (the ``torch.profiler`` ranges that
+    ``parallel/collectives.py`` names; a plan that moves rows fails
+    without its exchange range), peak memory and K2 launches; D1's
+    one-word run starts are timed by searchsorted and by the compare-sum;
+    then K2 is held bit-exact against its plain version
+    at every slot's expansion. Phase 2 also runs the LSD ladder's engines
     (``implementation="xla_argsort"`` / ``"xla_rank"``) on 2**20 uint32 and
     uint64 keys against a stable ``torch.sort``.
 
@@ -89,6 +109,10 @@ import radix_sort_tpu_torch as rst
 from radix_sort_tpu_torch import _build, keys
 from radix_sort_tpu_torch.table import Table
 from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, sample_sort
+from radix_sort_tpu_torch.parallel import collectives as rcoll
+from radix_sort_tpu_torch.parallel import dist_query as rdq
+from radix_sort_tpu_torch.parallel import dist_sort as rdsort
+from radix_sort_tpu_torch.parallel import runtime as rdist
 from radix_sort_tpu_torch.utils import distributions as dist
 from radix_sort_tpu_torch.utils import timing
 
@@ -1968,6 +1992,471 @@ def sql_path(gen):
     return work, k2
 
 
+# ---------------------------------------------------------------- phase 11
+
+# The distributed layer on one card: a mesh of D_SHARDS slots on cuda:0
+# (one card cannot host several NCCL ranks, so the slots share one process
+# and the exchange is device-local copies).
+D_SHARDS = 4
+D1_ROWS = MAIN_ROWS[1]  # 250M uniform (u64, u64) rows, 4.0 GB
+D_SMALL = MAIN_ROWS[0]  # 31.25M rows: the other exchanges, 8 slots, skew
+D3_CAPACITY = (1 << 25, 1 << 23)  # per slot: J1 ~15M rows, J2 ~3.9M rows, 2x headroom
+D3_SKEW_ROWS = 1 << 20  # the forced skew fallback's sides
+D3_SKEW_CAPACITY = 1 << 21  # per slot: the hot slot's ~4M rows overflow it
+A1_GROUPS = 8  # Q1's 4 groups and the padding group, per slot
+A2_GROUPS = 1 << 24  # per slot: ~9.4M of the 15M orders a slot, padding group included
+D5_UNIQUE = 1 << 20  # per slot: ~1M distinct o_custkey in all
+D5_TOP = 100
+D5_QS = (0.0, 0.01, 0.25, 0.5, 0.75, 0.99, 1.0)
+R_SLOT_CAPACITY = R_CAPACITY // D_SHARDS
+# the workloads whose plan moves rows between slots: their profile must
+# show the exchange's range (the aggregates, top_k, unique, filter, repeat
+# and set operators exchange only partial results, by all-gather)
+MUST_EXCHANGE = ("D1", "D2", "D3", "D5-quantiles")
+
+
+def _pad_rows(x, fill):
+    """``x`` padded to a multiple of D_SHARDS rows (the API asks callers to
+    pad to equal blocks) with rows of bit pattern ``fill`` (integer
+    dtypes; the padding is written through the signed view) or value
+    ``fill`` (floats)."""
+    extra = -x.shape[0] % D_SHARDS
+    if not extra:
+        return x
+    if x.is_floating_point():
+        return torch.cat([x, torch.full((extra,), fill, dtype=x.dtype, device=x.device)])
+    b = _bits(x)
+    nbits = 8 * x.element_size()
+    fill &= (1 << nbits) - 1
+    fill -= (1 << nbits) if fill >> (nbits - 1) else 0
+    return torch.cat([b, torch.full((extra,), fill, dtype=b.dtype, device=x.device)]).view(x.dtype)
+
+
+def _canonical(cols):
+    """The rows of ``cols`` (equal-length tensors) as bit patterns, sorted
+    lexicographically by every column (stable LSD passes of torch.sort):
+    two joins' outputs agree as multisets iff these agree."""
+    b = [_bits(c).to(torch.int64) for c in cols]
+    perm = torch.arange(b[0].shape[0], device=b[0].device)
+    for c in reversed(b):
+        perm = perm[torch.sort(c[perm], stable=True).indices]
+    return [c[perm] for c in b]
+
+
+def _dist_rows(cols, counts):
+    """The concatenated valid prefixes of sharded columns."""
+    return [rdist.valid_rows(c, counts) for c in cols]
+
+
+def _check_sorted_slots(k, v, counts, ref_k, ref_v, label):
+    """Slot by slot: the valid prefix against the stable-sort oracle's
+    rows, and the padding tail (all-ones keys, zero values)."""
+    off = 0
+    for s, c in enumerate(counts.tolist()):
+        kb, vb = _bits(k.blocks[s]), _bits(v.blocks[s])
+        check(torch.equal(kb[:c], _bits(ref_k[off:off + c]))
+              and torch.equal(vb[:c], _bits(ref_v[off:off + c])), f"{label}: slot {s} rows")
+        check(bool((kb[c:] == -1).all()) and bool((vb[c:] == 0).all()), f"{label}: slot {s} tail")
+        off += c
+    check(off == ref_k.shape[0], f"{label}: {off} valid rows of {ref_k.shape[0]}")
+
+
+def _sort_oracle(keys, vals):
+    """Stable torch.sort of u64 keys (their rank words) with the values,
+    as int64 bit views (CUDA indexing has no unsigned kernels)."""
+    perm = torch.sort(keys.view(torch.int64) ^ (-(1 << 63)), stable=True).indices
+    return _bits(keys)[perm], _bits(vals)[perm]
+
+
+def _time_run_starts(ks, mesh):
+    """D1's one-word run starts (each slot's rows below each composite
+    splitter): the searchsorted route of ``_below_starts`` against the
+    reference's compare-sum ``_below_counts`` on the same sorted slots,
+    equal counts required, both timed (CUDA events, median of 5)."""
+    n_local = ks.block_rows
+    s_words = [[torch.sort(b.view(torch.int64) ^ (-(1 << 63)), stable=True).values]
+               for b in ks.blocks]
+    sws, sp = rdsort._composite_splitters(mesh, s_words)
+    sp = sp.to(torch.int64)
+
+    def starts(fn):
+        return [fn(w, r * n_local, sws, sp) for w, r in zip(s_words, mesh.local)]
+
+    def searchsorted():
+        return starts(rdsort._below_starts)
+
+    def compare_sum():
+        return starts(rdsort._below_counts)
+
+    check(all(torch.equal(a[1:], b) for a, b in zip(searchsorted(), compare_sum())),
+          "D1 run starts: searchsorted and compare-sum disagree")
+    ms = {f.__name__: median(timing.cuda_time_ms(f, runs=5)) for f in (searchsorted, compare_sum)}
+    log(f"D1 run starts of {len(s_words)} slots x {n_local:,} rows, {mesh.size - 1} splitters: "
+        f"searchsorted {ms['searchsorted']:.3f} ms, compare-sum {ms['compare_sum']:.3f} ms "
+        f"(equal counts)")
+
+
+def d_sort(gen, mesh, mesh8):
+    """D1 and D2: the distributed sort on uniform, step-uniform and
+    all-equal keys, every exchange, 4 and 8 slots and the forced fallback,
+    each bit-exact against a stable torch.sort. Returns the workloads."""
+    work = {}
+    keys = dist.key_uniform(gen, D1_ROWS, torch.uint64)
+    vals = dist.key_uniform(gen, D1_ROWS, torch.uint64)
+    cap = rdsort.exchange_capacity(D1_ROWS // D_SHARDS, D_SHARDS)
+    ks, vs = rdist.shard_rows(mesh, keys, vals)
+    k, v, counts, ovf = rdsort.distributed_sort_pairs(ks, vs, mesh)
+    torch.cuda.synchronize()
+    ref_k, ref_v = _sort_oracle(keys, vals)
+    check(not bool(ovf), "D1: overflow")
+    check(int(counts.max()) <= cap, f"D1: a slot holds {int(counts.max())} rows > {cap}")
+    _check_sorted_slots(k, v, counts, ref_k, ref_v, "D1")
+    log(f"D1: {D1_ROWS:,} (u64, u64) rows on {D_SHARDS} slots bit-exact vs stable torch.sort; "
+        f"overflow False; counts {counts.tolist()} (bound {cap:,})")
+    del k, v, ref_k, ref_v
+    _time_run_starts(ks, mesh)
+    work["D1 distributed_sort_pairs 250M uniform (u64, u64), 4 slots"] = (
+        lambda: rdsort.distributed_sort_pairs(ks, vs, mesh),
+        lambda: _sort_oracle(keys, vals), D1_ROWS)
+
+    n = D_SMALL
+    small_k, small_v = keys[:n].clone(), vals[:n].clone()
+    ref_k, ref_v = _sort_oracle(small_k, small_v)
+    sk, sv = rdist.shard_rows(mesh, small_k, small_v)
+    sk8, sv8 = rdist.shard_rows(mesh8, small_k, small_v)
+    variants = {"gather": lambda: rdsort.distributed_sort_pairs(sk, sv, mesh, exchange="gather"),
+                "pipelined": lambda: rdsort.distributed_sort_pairs(sk, sv, mesh,
+                                                                   exchange="pipelined"),
+                "8 slots": lambda: rdsort.distributed_sort_pairs(sk8, sv8, mesh8)}
+    for name, call in variants.items():
+        k, v, counts, ovf = call()
+        slots = counts.shape[0]
+        check(not bool(ovf), f"D1 {name}: overflow")
+        check(int(counts.max()) <= rdsort.exchange_capacity(n // slots, slots),
+              f"D1 {name}: count above the bound")
+        _check_sorted_slots(k, v, counts, ref_k, ref_v, f"D1 {name}")
+        log(f"D1 {name}: {n:,} rows bit-exact, counts {counts.tolist()}")
+        del k, v
+        work[f"D1-{name.replace(' ', '')} distributed_sort_pairs 31.25M, {name}"] = (
+            call, lambda: _sort_oracle(small_k, small_v), n)
+    del ref_k, ref_v
+
+    for name, x in (("step_uniform", dist.step_uniform(gen, n, 16, torch.uint64)),
+                    ("all_equal", torch.full((n,), 0x0123456789ABCDEF, dtype=torch.int64,
+                                             device=DEV).view(torch.uint64))):
+        xs, svs = rdist.shard_rows(mesh, x, small_v)
+        ref_k, ref_v = _sort_oracle(x, small_v)
+        k, v, counts, ovf = rdsort.distributed_sort_pairs(xs, svs, mesh)
+        check(not bool(ovf), f"D2 {name}: overflow")
+        check(int(counts.max()) <= rdsort.exchange_capacity(n // D_SHARDS, D_SHARDS),
+              f"D2 {name}: a count above the bound")
+        _check_sorted_slots(k, v, counts, ref_k, ref_v, f"D2 {name}")
+        forced = rdsort.distributed_sort_pairs(xs, svs, mesh, capacity=n // D_SHARDS)
+        check(bool(forced[3]), f"D2 {name}: capacity=n_local did not overflow")
+        _check_sorted_slots(*forced[:3], ref_k, ref_v, f"D2 {name} fallback")
+        log(f"D2 {name}: {n:,} rows bit-exact, counts {counts.tolist()} within the bound; "
+            f"capacity=n_local overflows and the fallback is exact")
+        del k, v, forced, ref_k, ref_v
+        work[f"D2-{name} distributed_sort_pairs 31.25M {name}, 4 slots"] = (
+            lambda xs=xs, svs=svs: rdsort.distributed_sort_pairs(xs, svs, mesh),
+            lambda x=x: _sort_oracle(x, small_v), n)
+    return work
+
+
+def d_join(t, gen, mesh):
+    """D3: J1 and J2 as distributed joins at SF10 (K2 once per slot), held
+    against the single-device ``rst.hash_join`` as multisets of rows; a
+    forced skew fallback at 2**20 rows. Returns (workloads, K2 shapes, K2
+    launches of the distributed calls)."""
+    lk, lv = t["o_orderkey"], t["o_custkey32"]
+    rk = _pad_rows(t["l_orderkey"], 0xFFFFFFFF)  # no order has that key
+    rv = _pad_rows(t["l_extendedprice"], 0.0)
+    j1 = [rdist.shard_rows(mesh, x) for x in (lk, lv, rk, rv)]
+    j2 = [rdist.shard_rows(mesh, t[k]) for k in ("c_custkey", "c_acctbal", "o_custkey",
+                                                  "o_totalprice")]
+    hot_l = torch.randint(0, D3_SKEW_ROWS, (D3_SKEW_ROWS,), generator=gen, device=DEV)
+    hot_l[:D3_SKEW_ROWS // 4] = 7
+    hot_r = torch.randint(0, D3_SKEW_ROWS, (D3_SKEW_ROWS,), generator=gen, device=DEV)
+    hot_r[:16] = 7
+    skew_v = torch.arange(D3_SKEW_ROWS, dtype=torch.int32, device=DEV)
+    sk = [rdist.shard_rows(mesh, x) for x in (hot_l, skew_v, hot_r, skew_v)]
+    work = {
+        "D3-J1 ORDERS inner join LINEITEM, 4 slots": (
+            lambda: rdq.distributed_hash_join(*j1, mesh, capacity_per_shard=D3_CAPACITY[0]),
+            lambda: rst.hash_join(t["o_orderkey"], t["o_custkey32"], t["l_orderkey"],
+                                  t["l_extendedprice"], capacity=J1_CAPACITY),
+            D_SHARDS, lk.shape[0] + rk.shape[0]),
+        "D3-J2 CUSTOMER left join ORDERS, 4 slots": (
+            lambda: rdq.distributed_hash_join(*j2, mesh, capacity_per_shard=D3_CAPACITY[1],
+                                              how="left"),
+            lambda: rst.hash_join(t["c_custkey"], t["c_acctbal"], t["o_custkey"],
+                                  t["o_totalprice"], capacity=J2_CAPACITY, how="left"),
+            D_SHARDS, t["c_custkey"].shape[0] + t["o_custkey"].shape[0]),
+        "D3-skew 2**20 x 2**20 join, a key on 1/4 of the left rows: exact fallback": (
+            lambda: rdq.distributed_hash_join(*sk, mesh, capacity_per_shard=D3_SKEW_CAPACITY),
+            lambda: rst.hash_join(hot_l, skew_v, hot_r, skew_v,
+                                  capacity=D_SHARDS * D3_SKEW_CAPACITY),
+            None, 2 * D3_SKEW_ROWS),
+    }
+    launches = 0
+    for label, (call, single, k2, _) in work.items():
+        before = expand.LAUNCHES
+        jk, jlv, jrv, counts, ovf = call()
+        torch.cuda.synchronize()
+        calls = expand.LAUNCHES - before
+        launches += calls
+        if k2 is not None:
+            check(calls == k2, f"{label}: {calls} K2 launches, expected {k2}")
+        wk, wlv, wrv, wc, wo = single()
+        check(not bool(ovf) and not bool(wo), f"{label}: overflow")
+        wc = int(wc)
+        got = _canonical(_dist_rows([jk, jlv, jrv], counts))
+        want = _canonical([wk[:wc], wlv[:wc], wrv[:wc]])
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{label}: rows differ from the single-device join")
+        log(f"{label.split()[0]}: {wc:,} rows, the single-device join's multiset; per-slot "
+            f"counts {counts.tolist()}; K2 launches {calls}")
+        del jk, jlv, jrv, got, want, wk, wlv, wrv
+    return ({label: (call, single, rows) for label, (call, single, _, rows) in work.items()},
+            {"D3-J1": (work["D3-J1 ORDERS inner join LINEITEM, 4 slots"][0], D_SHARDS),
+             "D3-J2": (work["D3-J2 CUSTOMER left join ORDERS, 4 slots"][0], D_SHARDS)},
+            launches)
+
+
+def d_aggregate(t, mesh):
+    """D4: A1 (Q1's multi-aggregate) and A2 (sum(l_quantity) by l_orderkey,
+    15M groups) as distributed aggregates at SF10, held against phase 8's
+    oracles. Q1's filtered rows and LINEITEM pad to 4 equal blocks with
+    rows of a group that sorts last, and that group is checked too."""
+    rf, ls, qty, price, disc, _, disc_price, charge = q1_inputs(t)
+    a1_cols = [_pad_rows(rf, 0xFF), _pad_rows(ls, 0xFF)]
+    a1_vals = [_pad_rows(x, 0) for x in (qty, price, disc_price, charge, qty, price, disc, qty)]
+    pad1 = a1_cols[0].shape[0] - rf.shape[0]
+    a1 = [rdist.shard_rows(mesh, x) for x in a1_cols + a1_vals]
+    l_key = _pad_rows(t["l_orderkey"], 0xFFFFFFFF)
+    pad2 = l_key.shape[0] - t["l_orderkey"].shape[0]
+    a2 = rdist.shard_rows(mesh, l_key, _pad_rows(t["l_quantity"], 0))
+    work = {
+        "D4-A1 Q1 multi-aggregate by (returnflag, linestatus), 4 slots": (
+            lambda: rdq.distributed_hash_aggregate(a1[:2], a1[2:], mesh, Q1_AGGS,
+                                                   max_groups=A1_GROUPS),
+            lambda: q1(t), t["l_orderkey"].shape[0]),
+        "D4-A2 sum(l_quantity) by l_orderkey (15M groups), 4 slots": (
+            lambda: rdq.distributed_hash_aggregate(a2[0], a2[1], mesh, "sum",
+                                                   max_groups=A2_GROUPS),
+            lambda: rst.hash_aggregate(t["l_orderkey"], t["l_quantity"], "sum"),
+            t["l_orderkey"].shape[0]),
+    }
+    (g_rf, g_ls), aggs, count, ovf = work[next(iter(work))][0]()
+    g = int(count) - (1 if pad1 else 0)
+    check(not bool(ovf), "D4-A1: overflow")
+    if pad1:
+        check(int(g_rf[g]) == 0xFF and int(g_ls[g]) == 0xFF and int(aggs[7][g]) == pad1,
+              "D4-A1: the padding group")
+    log(f"D4-A1: matches phase 8's Q1 oracle; {check_q1(t, ((g_rf, g_ls), aggs, torch.tensor(g)))}"
+        f" (+ the padding group of {pad1} rows)")
+    uk, sums, count, ovf = work["D4-A2 sum(l_quantity) by l_orderkey (15M groups), 4 slots"][0]()
+    check(not bool(ovf), "D4-A2: overflow")
+    lk = _rank(t["l_orderkey"])
+    wk, inv = torch.unique(lk, return_inverse=True)
+    ws = torch.zeros_like(wk).index_add_(0, inv, t["l_quantity"].to(torch.int64))
+    g = wk.shape[0]
+    check(int(count) == g + (1 if pad2 else 0), "D4-A2: group count")
+    check(torch.equal(_rank(uk[:g]), wk) and torch.equal(sums[:g], ws.to(torch.int32)),
+          "D4-A2: keys or sums")
+    log(f"D4-A2: {g:,} groups, keys and int32 sums exact vs torch.unique + index_add_"
+        f" (+ the padding group of {pad2} rows)")
+    return {label: (call, single, rows) for label, (call, single, rows) in work.items()}
+
+
+def d_operators(t, gen, mesh):
+    """D5: top_k, unique, quantiles, filter, repeat (K2 once per slot) and
+    the set operators on SF10 columns, each against a torch oracle.
+    Returns (workloads, K2 shapes, K2 launches of the distributed calls)."""
+    o = [rdist.shard_rows(mesh, t[k]) for k in ("o_totalprice", "o_orderdate", "o_orderkey",
+                                                 "o_custkey")]
+    neg_date = rdist.shard_rows(mesh, -t["o_orderdate"])
+    price = _pad_rows(t["l_extendedprice"], 0.0)
+    price_s = rdist.shard_rows(mesh, price)
+    cust = rdist.shard_rows(mesh, t["c_custkey"])
+    r_values = torch.randint(-(1 << 31), 1 << 31, (R_VALUES,), dtype=torch.int32,
+                             generator=gen, device=DEV)
+    r_counts = torch.randint(0, 129, (R_VALUES,), dtype=torch.int32, generator=gen, device=DEV)
+    rv_s, rc_s = rdist.shard_rows(mesh, r_values, r_counts)
+    date_cut = _days(1995, 1, 1)
+    keep = rdist.shard_rows(mesh, t["o_orderdate"] < date_cut)
+    work = {
+        "D5-top_k top 100 orders by (o_totalprice desc, o_orderdate), 4 slots": (
+            lambda: rdq.distributed_top_k([o[0], neg_date], D5_TOP, o[2], mesh=mesh),
+            lambda: rst.top_k([t["o_totalprice"], -t["o_orderdate"]], D5_TOP, t["o_orderkey"]),
+            t["o_orderkey"].shape[0]),
+        "D5-unique distinct o_custkey with counts, 4 slots": (
+            lambda: rdq.distributed_unique(o[3], mesh, max_unique=D5_UNIQUE),
+            lambda: rst.unique(t["o_custkey"]), t["o_custkey"].shape[0]),
+        "D5-quantiles 7 quantiles of l_extendedprice, 4 slots": (
+            lambda: rdq.distributed_quantiles(price_s, D5_QS, mesh),
+            lambda: rst.quantiles(price, D5_QS), price.shape[0]),
+        "D5-filter ORDERS o_orderdate < 1995-01-01 (3 columns), 4 slots": (
+            lambda: rdq.distributed_filter(keep, o[2], o[0], o[3], mesh=mesh),
+            lambda: rst.filter(t["o_orderdate"] < date_cut, t["o_orderkey"], t["o_totalprice"],
+                               t["o_custkey"]), t["o_orderkey"].shape[0]),
+        "D5-R repeat of 1M i32 values, counts in [0, 128], 4 slots": (
+            lambda: rdq.distributed_repeat(rv_s, rc_s, mesh,
+                                           total_size_per_shard=R_SLOT_CAPACITY),
+            lambda: rst.repeat(r_values, r_counts, total_size=R_CAPACITY), R_VALUES),
+        "D5-sets o_custkey intersect / except / union c_custkey, 4 slots": (
+            lambda: [f(o[3], cust, mesh, max_unique=D5_UNIQUE)
+                     for f in (rdq.distributed_set_intersect, rdq.distributed_set_difference,
+                               rdq.distributed_set_union)],
+            lambda: [f(t["o_custkey"], t["c_custkey"])
+                     for f in (rst.set_intersect, rst.set_difference, rst.set_union)],
+            t["o_custkey"].shape[0] + t["c_custkey"].shape[0]),
+    }
+    # the oracles: stable torch.sort, torch.unique, a boolean mask,
+    # torch.repeat_interleave and torch.isin
+    (tp, nd), ok = work[next(iter(work))][0]()
+    perm = torch.sort(t["o_orderdate"], stable=True).indices
+    perm = perm[torch.sort(t["o_totalprice"][perm], stable=True, descending=True).indices][:D5_TOP]
+    check(torch.equal(_bits(tp), _bits(t["o_totalprice"][perm]))
+          and torch.equal(nd, -t["o_orderdate"][perm])
+          and torch.equal(_bits(ok), _bits(t["o_orderkey"])[perm]), "D5 top_k")
+    uk, cts, num, ovf = rdq.distributed_unique(o[3], mesh, max_unique=D5_UNIQUE)
+    wk, wc = torch.unique(t["o_custkey"], return_counts=True)
+    check(not bool(ovf) and int(num) == wk.shape[0] and torch.equal(uk[:wk.shape[0]], wk)
+          and torch.equal(cts[:wk.shape[0]], wc.to(torch.int32)), "D5 unique")
+    got = rdq.distributed_quantiles(price_s, D5_QS, mesh)
+    srt = torch.sort(price).values
+    idx = torch.tensor([int(q * (price.shape[0] - 1)) for q in D5_QS], device=DEV)
+    check(torch.equal(_bits(got), _bits(srt[idx])), "D5 quantiles")
+    *cols, counts = rdq.distributed_filter(keep, o[2], o[0], o[3], mesh=mesh)
+    m = t["o_orderdate"] < date_cut
+    check(all(torch.equal(_bits(g), _bits(t[k])[m]) for g, k in zip(
+        _dist_rows(cols, counts), ("o_orderkey", "o_totalprice", "o_custkey"))), "D5 filter")
+    before = expand.LAUNCHES
+    out, r_cnt, r_ovf = rdq.distributed_repeat(rv_s, rc_s, mesh,
+                                               total_size_per_shard=R_SLOT_CAPACITY)
+    torch.cuda.synchronize()
+    k2_r = expand.LAUNCHES - before
+    check(k2_r == D_SHARDS, f"D5 repeat: {k2_r} K2 launches, expected {D_SHARDS}")
+    check(not bool(r_ovf) and torch.equal(
+        rdist.valid_rows(out, r_cnt), torch.repeat_interleave(r_values, r_counts)), "D5 repeat")
+    inter, diff, union = work["D5-sets o_custkey intersect / except / union c_custkey, 4 slots"][0]()
+    ou, cu = torch.unique(t["o_custkey"]), torch.unique(t["c_custkey"])
+    for (keys_, cnt_, ovf_), want, name in (
+            (inter, ou[torch.isin(ou, cu)], "intersect"), (diff, ou[~torch.isin(ou, cu)], "except"),
+            (union, torch.unique(torch.cat([ou, cu])), "union")):
+        check(not bool(ovf_) and int(cnt_) == want.shape[0]
+              and torch.equal(keys_[:want.shape[0]], want), f"D5 {name}")
+    log(f"D5: top_k, unique ({wk.shape[0]:,} keys), quantiles, filter ({int(m.sum()):,} rows), "
+        f"repeat ({int(r_cnt.sum()):,} rows, K2 launches {k2_r}) and intersect / except / "
+        f"union ({int(inter[1]):,} / {int(diff[1]):,} / {int(union[1]):,}) match their torch "
+        f"oracles")
+    return ({label: (call, single, rows) for label, (call, single, rows) in work.items()},
+            {"D5-R": (work["D5-R repeat of 1M i32 values, counts in [0, 128], 4 slots"][0],
+                      D_SHARDS)}, k2_r)
+
+
+def _range_device_us(prof, key):
+    """Device time torch.profiler attributes to the CPU range ``key``
+    (the kernels launched inside it); None when the range never ran."""
+    for e in prof.key_averages():
+        if e.key == key and getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None)
+            return us if us is not None else getattr(e, "cuda_time_total", 0.0)
+    return None
+
+
+def _share(what, us, busy):
+    if us is None:
+        return f"no {what} in this plan"
+    if not (busy and us):
+        return f"the {what}'s share not measured"
+    return f"the {what} {us / 1e3:.3f} ms = {100 * us / busy:.1f}%"
+
+
+def time_dist(work):
+    """Each D workload: wall time (CUDA events, median of 5), device busy
+    and the exchange's share of it (torch.profiler), peak memory above the
+    inputs and K2 launches, with its single-device counterpart's wall time
+    and peak beside it."""
+    out = {}
+    for label, (call, single, rows_in) in work.items():
+        name = label.split()[0]
+        row = {}
+        for side, fn in (("dist", call), ("single", single)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = expand.LAUNCHES
+            res = fn()
+            torch.cuda.synchronize()
+            row[f"{side}_k2"] = expand.LAUNCHES - before
+            row[f"{side}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            del res
+            row[f"{side}_ms"] = median(timing.cuda_time_ms(fn, runs=5))
+        fn = call
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = []
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            if e.key in (rcoll.EXCHANGE_RANGE, rcoll.GATHER_RANGE):
+                continue  # a range's own device-side annotation, not a kernel
+            us = getattr(e, "self_device_time_total", None)
+            kernels.append((us if us is not None else getattr(e, "self_cuda_time_total", 0.0),
+                            e.key))
+        kernels.sort(reverse=True)
+        busy = sum(us for us, _ in kernels)
+        exch = _range_device_us(prof, rcoll.EXCHANGE_RANGE)
+        gath = _range_device_us(prof, rcoll.GATHER_RANGE)
+        if name.startswith(MUST_EXCHANGE):
+            check(exch is not None, f"{name}: the profile shows no exchange range")
+        row.update(busy_ms=busy / 1e3, exchange_ms=exch and exch / 1e3,
+                   all_gather_ms=gath and gath / 1e3)
+        out[name] = row
+        share = f"{_share('exchange', exch, busy)}, {_share('all-gather', gath, busy)}"
+        log(f"{name}: median {row['dist_ms']:.3f} ms ({rows_in / row['dist_ms'] / 1e3:.1f} M "
+            f"input rows/s); device busy "
+            + (f"{busy / 1e3:.3f} ms in {len(kernels)} kernels; {share}" if busy else
+               "not measured (the profiler showed no device time)")
+            + f"; peak {row['dist_peak_gib']:.2f} GiB above the inputs; K2 launches "
+            f"{row['dist_k2']}; single device: median {row['single_ms']:.3f} ms, peak "
+            f"{row['single_peak_gib']:.2f} GiB, K2 launches {row['single_k2']}")
+        if busy:
+            log(f"{name} top device costs: " + "; ".join(
+                f"{k[:60]} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)"
+                for us, k in kernels[:5]))
+    return out
+
+
+def distributed_path(gen):
+    """Phase 11: D1-D5 on a 4-slot mesh on cuda:0, each checked against its
+    oracle, then timed. Returns (the K2 shapes it recorded, K2 launches of
+    the checked distributed calls)."""
+    mesh = rdist.data_mesh(D_SHARDS, device=DEV)
+    mesh8 = rdist.data_mesh(2 * D_SHARDS, device=DEV)
+    log(f"mesh: {mesh}")
+    work = d_sort(gen, mesh, mesh8)
+    time_dist(work)
+    del work
+    torch.cuda.empty_cache()
+    t = tpch_sf10(gen)
+    log(f"TPC-H SF10 for the distributed path: {t['o_orderkey'].shape[0]:,} orders, "
+        f"{t['l_orderkey'].shape[0]:,} lineitems, {t['c_custkey'].shape[0]:,} customers")
+    join_work, k2_join, join_launches = d_join(t, gen, mesh)
+    agg_work = d_aggregate(t, mesh)
+    op_work, k2_ops, op_launches = d_operators(t, gen, mesh)
+    time_dist({**join_work, **agg_work, **op_work})
+    return {**k2_join, **k2_ops}, join_launches + op_launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
@@ -2051,6 +2540,15 @@ def main():
     time_workloads(sql_work)
     k2_sql_rows, k2_err4 = k2_at_shapes(sql_k2)
     del sql_work, sql_k2
+
+    # the distributed layer on a 4-slot mesh on one card (phase 11)
+    torch.cuda.empty_cache()
+    expand.LAUNCHES = 0  # each distributed call's launches are read around it
+    dist_k2, k2_dist = distributed_path(gen)
+    check(k2_dist > 0, "the distributed path never launched the expand kernel")
+    log(f"distributed path: expand kernel calls {k2_dist}")
+    k2_dist_rows, k2_err5 = k2_at_shapes(dist_k2)
+    del dist_k2
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
@@ -2072,9 +2570,10 @@ def main():
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/expand.cu",
         "replaces": "radix_sort_tpu/ops/expand.py:330",
-        "launches": k2_launches + k2_table + k2_sql,
-        "launches_by_path": {"join": k2_launches, "table": k2_table, "sql": k2_sql},
-        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4),
+        "launches": k2_launches + k2_table + k2_sql + k2_dist,
+        "launches_by_path": {"join": k2_launches, "table": k2_table, "sql": k2_sql,
+                             "dist": k2_dist},
+        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4, k2_err5),
         "ms": r_row["ms"],
         "plain_ms": r_row["plain_ms"],
         "bound_ms": r_row["bound_ms"],
@@ -2082,7 +2581,7 @@ def main():
         "library_ms": r_row["library_ms"],
         "shape": "R: the repeat call, one i32 column (torch.repeat_interleave computes "
                  "the same); every shape in calls",
-        "calls": k2_rows + k2_table_rows + k2_sql_rows,
+        "calls": k2_rows + k2_table_rows + k2_sql_rows + k2_dist_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -16,10 +16,13 @@ dictionary-encoded strings from ``strings`` and dates from ``dates``), the
 query-language layer (column expressions ``col`` / ``lit`` / ``where`` /
 ... from ``expr``, the lazy planner behind ``Table.lazy()`` in ``plan``,
 and ``sql()``) and the LSD ladder of ``ops/xla_radix`` as the
-``"xla_argsort"`` / ``"xla_rank"`` engines; the kernels are built at first
-use. ``Table`` puts its columns on the GPU unless it is given
-``device="cpu"``. ``Table.from_csv`` and the multi-device layer are not
-ported yet (ROADMAP.md).
+``"xla_argsort"`` / ``"xla_rank"`` engines, and the first slice of the
+distributed layer (``parallel``: a mesh of shard slots, several of which
+may share one card, the distributed sort, GROUP BY, join, DISTINCT, top-k,
+quantiles, filter, UNNEST and set operators); the kernels are built at
+first use. ``Table`` puts its columns on the GPU unless it is given
+``device="cpu"``. ``Table.from_csv``, ``DistTable`` and the distributed
+windows and ASOF joins are not ported yet (ROADMAP.md).
 """
 
 from radix_sort_tpu_torch import config, dates, keys, nulls, strings

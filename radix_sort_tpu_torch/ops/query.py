@@ -773,18 +773,20 @@ def repeat(values: torch.Tensor, counts: torch.Tensor, *, total_size: int):
     return out, count, overflow
 
 
-def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner"):
+def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner", valid_left=None):
     """The match-expansion phase of the join: given each left row's
     sorted-right match range [lo, hi), emit the join result for ``how``
     into static-``capacity`` outputs.
 
     Operates on encoded key limbs (``lkw``, a single limb tensor or a list
     of big-endian limbs; the returned key words match its shape); callers
-    decode. Returns ``(key_words, left_vals, right_vals, count,
-    overflow)``. ``how="full"`` emits the left-join rows only (callers
-    append the unmatched right rows with
-    :func:`append_unmatched_right`); ``how="right"`` is a side swap
-    resolved by the callers. Inner and left joins expand through K2.
+    decode. ``valid_left`` (bool, one per left row) masks out padding rows
+    of a distributed shard: they emit nothing and never count as matched.
+    Returns ``(key_words, left_vals, right_vals, count, overflow)``.
+    ``how="full"`` emits the left-join rows only (callers append the
+    unmatched right rows with :func:`append_unmatched_right`);
+    ``how="right"`` is a side swap resolved by the callers. Inner and left
+    joins expand through K2.
     """
     if how not in JOIN_HOWS or how == "right":
         raise ValueError(
@@ -805,11 +807,15 @@ def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner"):
                 outs_rv if multi_rv else outs_rv[0], count, overflow)
 
     matches = hi - lo
+    if valid_left is not None:
+        matches = torch.where(valid_left, matches, 0)
 
     if how in ("semi", "anti"):
         # one output row per qualifying left row, in left order: a stable
         # filter, no expansion
         sel = (matches > 0) if how == "semi" else (matches == 0)
+        if valid_left is not None:
+            sel = sel & valid_left
         *c_all, cnt = filter(sel, *lkws, *lvs)
         valid = torch.arange(capacity, device=dev) < cnt.clamp(max=capacity)
         return _pack([_mask(valid, _fit(k, capacity), ZERO_LIMB) for k in c_all[:len(lkws)]],
@@ -819,7 +825,11 @@ def join_expand(lkw, left_values, rvs, lo, hi, *, capacity, how="inner"):
 
     # inner/left: prefix-sum output addressing. A left join emits exactly
     # one row (with right value 0) for each unmatched left row.
-    emit = torch.where(matches == 0, 1, matches) if how == "left" else matches
+    emit = matches
+    if how == "left":
+        emit = torch.where(matches == 0, 1, matches)
+        if valid_left is not None:
+            emit = torch.where(valid_left, emit, 0)
     return _pack(*_join_expand_kernel(lkws, lvs, rvs_l, lo, matches, emit, capacity))
 
 
@@ -841,7 +851,7 @@ def _join_expand_kernel(lkws, lvs, rvs_l, lo, matches, emit, capacity):
 
 
 def append_unmatched_right(out_ks, out_lv, out_rv, count, overflow, rks, rvs, lo, hi,
-                           *, capacity):
+                           *, capacity, valid_left=None, valid_right=None):
     """Complete a full outer join: append the unmatched sorted-right rows
     (left value 0) after the left-join block already in ``out_*``.
 
@@ -851,19 +861,26 @@ def append_unmatched_right(out_ks, out_lv, out_rv, count, overflow, rks, rvs, lo
     output slots [count, count + n_unmatched); rows past ``capacity`` are
     dropped and flagged, so the first ``capacity`` rows stay exact.
     ``out_ks`` / ``rks`` are parallel limb lists; ``rvs`` / ``out_rv`` may
-    be value-column lists. Returns ``(out_ks, out_lv, out_rv, count,
-    overflow)`` with the same contract.
+    be value-column lists; ``valid_left`` / ``valid_right`` mask the
+    padding rows of a distributed shard (a padding left row covers no
+    right row, a padding right row is never appended). Returns
+    ``(out_ks, out_lv, out_rv, count, overflow)`` with the same contract.
     """
     multi_rv = isinstance(rvs, (list, tuple))
     rvs_l = list(rvs) if multi_rv else [rvs]
     orv_l = list(out_rv) if multi_rv else [out_rv]
     n_r = rvs_l[0].shape[0]
     dev = lo.device
-    one = (hi > lo).to(torch.int32)
+    has = hi > lo
+    if valid_left is not None:
+        has = has & valid_left
+    one = has.to(torch.int32)
     delta = torch.zeros((n_r + 1,), dtype=torch.int32, device=dev)
     delta.index_add_(0, lo.clamp(0, n_r).to(torch.int64), one)
     delta.index_add_(0, hi.clamp(0, n_r).to(torch.int64), -one)
     unmatched = ~(torch.cumsum(delta[:n_r], 0) > 0)
+    if valid_right is not None:
+        unmatched = unmatched & valid_right
     *cu, cnt_u = filter(unmatched, *rks, *rvs_l)
     cks, crvs = cu[:len(rks)], cu[len(rks):]
     # a slot per appended row; rows past cnt_u or capacity go to a dump

@@ -505,3 +505,59 @@ def test_expressions_on_card_match_cpu(cuda):
         size = torch.empty((), dtype=c.dtype).element_size()
         as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[size]
         assert torch.equal(g.view(as_int), c.view(as_int)), repr(e)
+
+
+# ------------------------------------------------- the distributed layer
+
+
+def _slot_rows(x, counts):
+    from radix_sort_tpu_torch.parallel import runtime
+
+    return runtime.valid_rows(x, counts)
+
+
+@pytest.mark.cuda
+def test_distributed_on_a_four_slot_card_mesh(cuda):
+    """A small distributed sort, join and repeat on 4 slots of one card,
+    against the same calls on 4 CPU slots (bit for bit, per-slot layout
+    included); the join and the repeat launch K2 once per slot."""
+    from radix_sort_tpu_torch.parallel import dist_query, dist_sort, runtime
+
+    rng = np.random.default_rng(11)
+    card = runtime.data_mesh(4, device="cuda")
+    cpu = runtime.data_mesh(4, device="cpu")
+    assert all(d.type == "cuda" for d in card.devices)
+    n = 4 * 4096
+    k = torch.from_numpy(rng.integers(0, 1 << 64, n, dtype=np.uint64))
+    v = torch.from_numpy(rng.standard_normal(n))
+    for ex in ("ragged", "gather", "pipelined"):
+        got = dist_sort.distributed_sort_pairs(k.cuda(), v.cuda(), card, exchange=ex)
+        want = dist_sort.distributed_sort_pairs(k, v, cpu, exchange=ex)
+        assert got[0].blocks[0].is_cuda and not bool(got[3])
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(runtime.gather_rows(g).cpu().view(torch.int64),
+                               runtime.gather_rows(w).view(torch.int64))
+        assert torch.equal(got[2].cpu(), want[2])
+
+    lk = torch.from_numpy(rng.integers(0, 3000, n).astype(np.uint32))
+    rk = torch.from_numpy(rng.integers(0, 2000, n).astype(np.uint32))
+    lv = torch.from_numpy(rng.integers(-100, 100, n).astype(np.int32))
+    rv = torch.from_numpy(rng.random(n).astype(np.float32))
+    for how in ("inner", "left", "full"):
+        before = expand.LAUNCHES
+        got = dist_query.distributed_hash_join(lk.cuda(), lv.cuda(), rk.cuda(), rv.cuda(), card,
+                                               capacity_per_shard=1 << 16, how=how)
+        assert expand.LAUNCHES - before == 4  # one K2 launch per slot
+        want = dist_query.distributed_hash_join(lk, lv, rk, rv, cpu, capacity_per_shard=1 << 16,
+                                                how=how)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(runtime.gather_rows(g).cpu().view(torch.int32),
+                               runtime.gather_rows(w).view(torch.int32))
+        assert torch.equal(got[3].cpu(), want[3]) and not bool(got[4])
+
+    counts = torch.from_numpy(rng.integers(0, 20, n).astype(np.int32))
+    before = expand.LAUNCHES
+    got = dist_query.distributed_repeat(lv.cuda(), counts.cuda(), card,
+                                        total_size_per_shard=1 << 16)
+    assert expand.LAUNCHES - before == 4
+    assert torch.equal(_slot_rows(got[0], got[1]).cpu(), torch.repeat_interleave(lv, counts))
