@@ -81,7 +81,22 @@ together) and drives the port's two paths:
     without its exchange range), peak memory and K2 launches; D1's
     one-word run starts are timed by searchsorted and by the compare-sum;
     then K2 is held bit-exact against its plain version
-    at every slot's expansion. Phase 2 also runs the LSD ladder's engines
+    at every slot's expansion;
+  * ``DistTable`` on the same 4-slot mesh at TPC-H SF10 (phase 12), over
+    phase 9's tables sharded by ``DistTable.from_table``: DT1 Q1 (a filter
+    and the distributed aggregate), DT2 Q3 (three filters, two
+    co-partitioned joins, K2 once per slot each), DT3 Q13 (a left join and
+    two aggregates), DT4 T4's window ops plus lead and nth_value and a
+    running sum over one 15M-row partition (the halo and carry paths),
+    DT5 the band joins against replicated tiers and date windows, two ASOF
+    joins against a sharded seeded right side and T5c's UNNEST, and
+    DS1-DS4 phase 10's SQL text over DistTable sources, each checked
+    against its torch oracle (where phases 9-10 have one) and against the
+    single-device Table or SQL result, with its K2 launches and any
+    replicated fallback (none may be taken) read around the call; one
+    ``explain()`` shows the broadcast ``join[lookup on ...]``. Each is
+    timed as phase 11 times its workloads, then K2 is held bit-exact
+    against its plain version at every slot's expansion. Phase 2 also runs the LSD ladder's engines
     (``implementation="xla_argsort"`` / ``"xla_rank"``) on 2**20 uint32 and
     uint64 keys against a stable ``torch.sort``.
 
@@ -110,8 +125,10 @@ from radix_sort_tpu_torch import _build, keys
 from radix_sort_tpu_torch.table import Table
 from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, sample_sort
 from radix_sort_tpu_torch.parallel import collectives as rcoll
+from radix_sort_tpu_torch.parallel import dist_asof as rda
 from radix_sort_tpu_torch.parallel import dist_query as rdq
 from radix_sort_tpu_torch.parallel import dist_sort as rdsort
+from radix_sort_tpu_torch.parallel import dist_window as rdw
 from radix_sort_tpu_torch.parallel import runtime as rdist
 from radix_sort_tpu_torch.utils import distributions as dist
 from radix_sort_tpu_torch.utils import timing
@@ -2374,11 +2391,12 @@ def _share(what, us, busy):
     return f"the {what} {us / 1e3:.3f} ms = {100 * us / busy:.1f}%"
 
 
-def time_dist(work):
+def time_dist(work, must_exchange=MUST_EXCHANGE):
     """Each D workload: wall time (CUDA events, median of 5), device busy
-    and the exchange's share of it (torch.profiler), peak memory above the
-    inputs and K2 launches, with its single-device counterpart's wall time
-    and peak beside it."""
+    and idle time and the exchange's and the all-gathers' shares of the busy
+    time (torch.profiler), peak memory above the inputs and K2 launches,
+    with its single-device counterpart's wall time and peak beside it. The
+    workloads named in ``must_exchange`` fail without an exchange range."""
     out = {}
     for label, (call, single, rows_in) in work.items():
         name = label.split()[0]
@@ -2415,7 +2433,7 @@ def time_dist(work):
         busy = sum(us for us, _ in kernels)
         exch = _range_device_us(prof, rcoll.EXCHANGE_RANGE)
         gath = _range_device_us(prof, rcoll.GATHER_RANGE)
-        if name.startswith(MUST_EXCHANGE):
+        if name.startswith(must_exchange):
             check(exch is not None, f"{name}: the profile shows no exchange range")
         row.update(busy_ms=busy / 1e3, exchange_ms=exch and exch / 1e3,
                    all_gather_ms=gath and gath / 1e3)
@@ -2423,7 +2441,9 @@ def time_dist(work):
         share = f"{_share('exchange', exch, busy)}, {_share('all-gather', gath, busy)}"
         log(f"{name}: median {row['dist_ms']:.3f} ms ({rows_in / row['dist_ms'] / 1e3:.1f} M "
             f"input rows/s); device busy "
-            + (f"{busy / 1e3:.3f} ms in {len(kernels)} kernels; {share}" if busy else
+            + (f"{busy / 1e3:.3f} ms in {len(kernels)} kernels, idle "
+               f"{row['dist_ms'] - busy / 1e3:.3f} ms ({100 * (1 - busy / 1e3 / row['dist_ms']):.1f}%"
+               f" of the wall time); {share}" if busy else
                "not measured (the profiler showed no device time)")
             + f"; peak {row['dist_peak_gib']:.2f} GiB above the inputs; K2 launches "
             f"{row['dist_k2']}; single device: median {row['single_ms']:.3f} ms, peak "
@@ -2454,6 +2474,303 @@ def distributed_path(gen):
     op_work, k2_ops, op_launches = d_operators(t, gen, mesh)
     time_dist({**join_work, **agg_work, **op_work})
     return {**k2_join, **k2_ops}, join_launches + op_launches
+
+
+# ---------------------------------------------------------------- phase 12
+
+# DistTable on the same 4-slot mesh of the card, over phase 9's tables
+DT_GROUPS = (16, 1 << 18, 1 << 19)  # per slot: Q1 (4 groups, 4 filtered, padding), Q3, Q13
+DT2_CAPACITY = (1 << 20, 1 << 20)  # per slot: ~365k BUILDING orders, ~75k of their lineitems
+DT3_CAPACITY = 1 << 23  # per slot: ~3.7M kept orders + ~125k customers without one
+DT5_SLOT_CAPACITY = T5_CAPACITY // D_SHARDS
+DT_ASOF_ROWS = 1 << 20  # the sharded right side of the ASOF joins
+DT4_OPS = {**T4_OPS, "ld": ("lead", "o_totalprice", 1), "nv": ("nth_value", "o_totalprice", 2)}
+# the SQL knobs over DistTable sources: the planner joins every row before
+# it filters (S2: ~15M per slot after the second join), and Q18's subquery
+# and Q3's fused WHERE group ~10M (order key, flag) groups a slot
+DS_CAPACITY = 24_000_000
+DS_KW = {"DS1": {"max_groups": 16}, "DS2": {"max_groups": 1 << 24},
+         "DS3": {"max_groups": 1 << 20}, "DS4": {"max_groups": 1 << 24}}
+# the eager-aggregation rewrite over a DistTable: a broadcast lookup join
+DS_LOOKUP = ("SELECT o_custkey, SUM(o_totalprice) AS spent, COUNT(*) AS n FROM orders "
+             "JOIN customer ON o_custkey = c_custkey GROUP BY o_custkey ORDER BY o_custkey")
+MUST_EXCHANGE_DT = ("DT2", "DT3", "DT4", "DT5-asof", "DS2", "DS3", "DS4")
+
+
+class Fallbacks:
+    """Records every replicated fallback the distributed layer takes while
+    active: an aggregate's, DISTINCT's or set operator's (``_fallback``
+    with its overflow flag set), and the single-device function each other
+    plan runs instead: a join's ``hash_join``, a sort's
+    ``_global_sort_fallback``, a window's ``_replicated`` and an ASOF
+    join's ``join_asof`` (the DistTable verbs call none of them
+    otherwise)."""
+
+    def __enter__(self):
+        self.taken = []
+        self._saved = [(rdq, "_fallback"), (rdq.Q, "hash_join"),
+                       (rdsort, "_global_sort_fallback"), (rdw, "_replicated"),
+                       (rda.R, "join_asof")]
+        self._orig = [getattr(m, a) for m, a in self._saved]
+
+        def flagged(f):
+            def fallback(overflow, *a, **kw):
+                if overflow:
+                    self.taken.append("aggregate/distinct/set-op")
+                return f(overflow, *a, **kw)
+            return fallback
+
+        def taken(f, what):
+            def call(*a, **kw):
+                self.taken.append(what)
+                return f(*a, **kw)
+            return call
+
+        fb, *rest = self._orig
+        new = [flagged(fb)] + [taken(f, w) for f, w in zip(rest, ("join", "sort", "window",
+                                                                  "asof"))]
+        for (m, a), f in zip(self._saved, new):
+            setattr(m, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), f in zip(self._saved, self._orig):
+            setattr(m, a, f)
+
+
+def _padded_table(t):
+    """``t`` with its rows zero-padded to a multiple of D_SHARDS (the padding
+    outside the valid count), so it shards into equal blocks."""
+    n = t.num_rows
+    if not n % D_SHARDS:
+        return t
+    cols = {c: _pad_rows(t[c], 0) for c in t.column_names}
+    return Table(cols, n, dictionaries=t._dicts, device=DEV)
+
+
+def dt1_q1(li):
+    """Q1 as T1, through DistTable calls (a filter, two computed columns,
+    the distributed aggregate; the sort on its result)."""
+    col = rst.col
+    t = li.filter(col("l_shipdate") <= Q1_SHIPDATE)
+    t = t.with_columns(disc_price=col("l_extendedprice") * (1 - col("l_discount")))
+    t = t.with_columns(charge=col("disc_price") * (1 + col("l_tax")))
+    t = t.aggregate(["l_returnflag", "l_linestatus"], {
+        "sum_qty": ("sum", "l_quantity"), "sum_base_price": ("sum", "l_extendedprice"),
+        "sum_disc_price": ("sum", "disc_price"), "sum_charge": ("sum", "charge"),
+        "avg_qty": ("mean", "l_quantity"), "avg_price": ("mean", "l_extendedprice"),
+        "avg_disc": ("mean", "l_discount"), "count_order": "count"}, max_groups=DT_GROUPS[0])
+    return t.sort_by(["l_returnflag", "l_linestatus"])
+
+
+def dt2_q3(li, orders, customer):
+    """Q3 as T2: three filters, two co-partitioned joins (K2 once per slot
+    each), the distributed aggregate, the top 10."""
+    col = rst.col
+    c = customer.filter(col("c_mktsegment") == "BUILDING")
+    o = orders.filter(col("o_orderdate") < Q3_DATE).select(
+        "o_orderkey", "o_custkey", "o_orderdate", "o_shippriority").rename(
+        {"o_custkey": "c_custkey", "o_orderkey": "l_orderkey"})
+    co, ovf1 = c.join(o, "c_custkey", capacity_per_shard=DT2_CAPACITY[0])
+    lf = li.filter(col("l_shipdate") > Q3_DATE).select("l_orderkey", "l_extendedprice",
+                                                       "l_discount")
+    rows, ovf2 = co.join(lf, "l_orderkey", capacity_per_shard=DT2_CAPACITY[1])
+    rows = rows.with_columns(revenue=col("l_extendedprice") * (1 - col("l_discount")))
+    agg = rows.aggregate(["l_orderkey", "o_orderdate", "o_shippriority"],
+                         {"revenue": ("sum", "revenue")}, max_groups=DT_GROUPS[1])
+    agg = agg.with_columns(neg_date=-agg["o_orderdate"])
+    return agg.top_k(10, ["revenue", "neg_date"]), (ovf1, ovf2)
+
+
+def dt3_q13(orders, customer):
+    """Q13 as T3: CUSTOMER left join ORDERS (K2 once per slot), the count of
+    the matched orders per customer (the unmatched side is NULL), then the
+    customers per count."""
+    o = orders.filter(~rst.col("o_special")).select("o_orderkey", "o_custkey").rename(
+        {"o_custkey": "c_custkey"})
+    co, ovf = customer.join(o, "c_custkey", capacity_per_shard=DT3_CAPACITY, how="left")
+    per = co.aggregate("c_custkey", {"c_count": ("count", "o_orderkey")},
+                       max_groups=DT_GROUPS[2])
+    dist_ = per.aggregate("c_count", {"custdist": "count"})
+    return dist_.sort_by(["custdist", "c_count"], descending=True), ovf
+
+
+def dt4_windows(orders):
+    """T4's seven window ops plus lead and nth_value over ORDERS by
+    customer and date, then the running sum over every row as one
+    partition, as DistTable windows."""
+    o = orders.select("o_custkey", "o_orderdate", "o_totalprice")
+    w = o.window(DT4_OPS, partition_by="o_custkey", order_by="o_orderdate")
+    return w.window({"all_cs": ("cumsum", "o_totalprice")}, order_by="o_orderdate")
+
+
+def dt5_inputs(raw, gen):
+    """The sharded right side of the ASOF joins: DT_ASOF_ROWS rate changes
+    on seeded dates (ties among them)."""
+    d = torch.randint(STARTDATE, ENDDATE, (DT_ASOF_ROWS,), generator=gen, device=DEV)
+    return Table({"o_orderdate": d.to(torch.int32),
+                  "rate": torch.randint(0, 1 << 20, (DT_ASOF_ROWS,), dtype=torch.int32,
+                                        generator=gen, device=DEV)}, device=DEV)
+
+
+def _np_same(label, a, b, floats=(), multiset=False):
+    """A DistTable result (``a``, or its to_table()) against the
+    single-device one: the same columns and valid rows; integers, dates,
+    codes, selected values and masks bit for bit (as multisets of rows with
+    ``multiset``). The float sums and means in ``floats`` differ by their
+    summation order: the workload's oracle holds each to its
+    recursive-summation bound instead."""
+    ta = a.to_table() if hasattr(a, "to_table") else a
+    check(ta.column_names == b.column_names, f"{label}: columns {ta.column_names} != "
+          f"{b.column_names}")
+    ka = ta.num_rows if ta.count is None else int(ta.count)
+    kb = b.num_rows if b.count is None else int(b.count)
+    check(ka == kb, f"{label}: {ka} rows != {kb}")
+    cols = [c for c in ta.column_names if c not in floats]
+    if multiset:
+        ga = _canonical([ta[c][:ka] for c in cols])
+        gb = _canonical([b[c][:kb] for c in cols])
+        check(all(torch.equal(x, y) for x, y in zip(ga, gb)), f"{label}: rows differ")
+    else:
+        for c in cols:
+            check_exact(ta[c][:ka], b[c][:kb], f"{label} {c}")
+    for c in ta.column_names:
+        ma, mb = ta.null_mask(c), b.null_mask(c)
+        check((ma is None) == (mb is None) and (ma is None or torch.equal(ma[:ka], mb[:kb])),
+              f"{label} {c}: NULL masks differ")
+
+
+def dist_table_path(gen):
+    """Phase 12: DT1-DT5 and DS1-DS4 over DistTables on the 4-slot mesh at
+    SF10, each checked against its torch oracle where phase 9 / 10 has one
+    and against the single-device Table / SQL result, K2 launches and
+    replicated fallbacks read around each call. Returns (workloads for
+    time_dist, K2 expansions for k2_at_shapes, K2 launches)."""
+    mesh = rdist.data_mesh(D_SHARDS, device=DEV)
+    raw = tpch_sf10(gen)
+    li, orders, customer = facade_tables(raw, gen)
+    raw["o_special"] = orders["o_special"]
+    tiers, windows, values = t5_inputs(raw, gen)
+    rates = dt5_inputs(raw, gen)
+    DT = rst.DistTable
+    d_li, d_orders, d_customer = (DT.from_table(_padded_table(t), mesh)
+                                  for t in (li, orders, customer))
+    d_values, d_rates = DT.from_table(values, mesh), DT.from_table(rates, mesh)
+    log(f"DistTable at SF10 on {D_SHARDS} slots of the card: {d_li!r}, {d_orders!r}, "
+        f"{d_customer!r}")
+    otk = orders.select("o_orderkey", "o_orderdate")
+    d_otk = d_orders.select("o_orderkey", "o_orderdate")
+    s_tables = {"lineitem": li, "orders": orders, "customer": customer}
+    d_tables = {"lineitem": d_li, "orders": d_orders, "customer": d_customer}
+
+    def with_table(out):
+        return (out[0].to_table(), out[1])
+
+    work = {
+        "DT1 Q1 as T1: filter, with_columns, aggregate (4 groups), sort_by": (
+            lambda: dt1_q1(d_li), lambda: t1_q1(li), lambda g: check_t1(raw, g),
+            0, S_FLOATS["S1"]),
+        "DT2 Q3 as T2: 3 filters, 2 co-partitioned joins, aggregate, top_k(10)": (
+            lambda: dt2_q3(d_li, d_orders, d_customer), lambda: t2_q3(li, orders, customer),
+            lambda g: check_t2(raw, li, orders, customer, g), 2 * D_SHARDS, ("revenue",)),
+        "DT3 Q13 as T3: CUSTOMER left join ORDERS, two aggregates": (
+            lambda: dt3_q13(d_orders, d_customer), lambda: t3_q13(orders, customer),
+            lambda g: check_t3(raw, g), D_SHARDS, ()),
+        "DT4 T4's windows + lead, nth_value, and one 15M-row partition, as DistTable.window": (
+            lambda: dt4_windows(d_orders), lambda: dt4_windows(orders),
+            lambda g: check_t4(raw, g.to_table()), 0, ("cs", "rs", "all_cs")),
+        "DT5a ORDERS join_band 1024 replicated price tiers": (
+            lambda: d_orders.select("o_orderkey", "o_totalprice").join_band(
+                tiers, "o_totalprice", "between", ("lo", "hi"),
+                capacity_per_shard=d_orders.rows_per_shard),
+            lambda: t5_tiers(orders, tiers),
+            lambda g: check_t5_tiers(raw, tiers, with_table(g)), 0, ()),
+        "DT5b ORDERS join_band 2 replicated date windows per customer on o_custkey": (
+            lambda: d_orders.select("o_orderkey", "o_custkey", "o_orderdate").join_band(
+                windows, "o_orderdate", "between", ("w_lo", "w_hi"), on="o_custkey",
+                capacity_per_shard=DT5_SLOT_CAPACITY),
+            lambda: t5_windows(orders, windows),
+            lambda g: check_t5_windows(raw, windows, with_table(g)), D_SHARDS, ()),
+        "DT5-asof ORDERS join_asof 1M sharded rates on o_orderdate, backward": (
+            lambda: d_otk.join_asof(d_rates, "o_orderdate", matched_col="m"),
+            lambda: otk.join_asof(rates, "o_orderdate", matched_col="m"), None, 0, ()),
+        "DT5-asoftol ORDERS join_asof 1M sharded rates, nearest within 2 days": (
+            lambda: d_otk.join_asof(d_rates, "o_orderdate", direction="nearest", tolerance=2,
+                                    matched_col="m"),
+            lambda: otk.join_asof(rates, "o_orderdate", direction="nearest", tolerance=2,
+                                  matched_col="m"), None, 0, ()),
+        "DT5c DistTable.unnest of 1M rows, counts in [0, 128]": (
+            lambda: d_values.unnest("n", U_CAPACITY // D_SHARDS),
+            lambda: values.unnest("n", U_CAPACITY),
+            lambda g: check_t5_unnest(values, with_table(g)), D_SHARDS, ()),
+    }
+    for name, (q, text, kw) in S_QUERIES.items():
+        dname = "D" + name  # DS1-DS4
+        dkw = dict(capacity_per_shard=DS_CAPACITY, exchange_capacity_factor=2.0,
+                   **DS_KW[dname])
+
+        def dcall(text=text, dkw=dkw):
+            return rst.sql(text, d_tables, **dkw).collect(return_overflow=True)
+
+        def scall(text=text, kw=kw):
+            return rst.sql(text, s_tables, **kw).collect(return_overflow=True)
+
+        work[f"{dname} TPC-H {q} as SQL over DistTable sources"] = (
+            dcall, scall, lambda g, name=name: _s_check(name, raw, li, orders, customer, *g),
+            None, S_FLOATS[name])
+
+    launches, k2 = 0, {}
+    for label, (call, single, verify, k2_calls, floats) in work.items():
+        name = label.split()[0]
+        before = expand.LAUNCHES
+        with Fallbacks() as fb:
+            got = call()
+            torch.cuda.synchronize()
+        calls = expand.LAUNCHES - before
+        launches += calls
+        check(not fb.taken, f"{name}: unforced replicated fallback {fb.taken}")
+        if k2_calls is not None:
+            check(calls == k2_calls, f"{name}: {calls} K2 launches, expected {k2_calls}")
+        if calls:
+            k2[name] = (call, calls)
+        note = verify(got) if verify is not None else "no torch oracle (single-device only)"
+        want = single()
+        g = got[0] if isinstance(got, tuple) else got
+        w = want[0] if isinstance(want, tuple) else want
+        if isinstance(got, tuple):
+            check(not bool(got[1]) if not isinstance(got[1], tuple)
+                  else not any(bool(o) for o in got[1]), f"{name}: overflow")
+        _np_same(name, g, w, floats=floats, multiset=name in ("DT5b",))
+        log(f"{name}: matches the single-device result; K2 launches {calls}; replicated "
+            f"fallbacks none; {note}")
+        del got, want, g, w
+    plan = rst.sql(DS_LOOKUP, d_tables, max_groups=1 << 20, capacity_per_shard=DS_CAPACITY)
+    text = plan.explain()
+    check("join[lookup on o_custkey]" in text, "DS-lookup: no broadcast lookup join in the plan")
+    log("DS-lookup (the eager-aggregation rewrite over DistTable sources): " + DS_LOOKUP
+        + "\n" + text)
+    got, want = plan.collect(), rst.sql(DS_LOOKUP, s_tables).collect()
+    _np_same("DS-lookup", got, want, floats=("spent",))
+    k = int(want.count)
+    err = (got["spent"][:k] - want["spent"][:k]).abs()
+    n = want["n"][:k].to(torch.float64)  # sum |x| <= n * max price: the parity bound
+    check(bool((err <= 2 * n * U64 * got["spent"][:k].abs()).all()),
+          "DS-lookup spent beyond its summation bound")
+    log("DS-lookup: matches the single-device SQL result")
+    timed = {label: (call, single, rows_in(label, li, orders, customer))
+             for label, (call, single, *_) in work.items()}
+    return timed, k2, launches
+
+
+def rows_in(label, li, orders, customer):
+    """Input rows of a phase-12 workload (for the rows/s figure)."""
+    name = label.split()[0]
+    return {"DT1": li.num_rows, "DT2": li.num_rows + orders.num_rows + customer.num_rows,
+            "DT3": orders.num_rows + customer.num_rows, "DS1": li.num_rows,
+            "DS2": li.num_rows + orders.num_rows + customer.num_rows,
+            "DS3": orders.num_rows + customer.num_rows,
+            "DS4": 2 * li.num_rows + orders.num_rows + customer.num_rows,
+            "DT5c": U_VALUES}.get(name, orders.num_rows)
 
 
 
@@ -2549,6 +2866,17 @@ def main():
     log(f"distributed path: expand kernel calls {k2_dist}")
     k2_dist_rows, k2_err5 = k2_at_shapes(dist_k2)
     del dist_k2
+
+    # DistTable on the 4-slot mesh at TPC-H SF10 (phase 12)
+    torch.cuda.empty_cache()
+    expand.LAUNCHES = 0  # each DistTable call's launches are read around it
+    dt_work, dt_k2, k2_dt = dist_table_path(gen)
+    check(k2_dt > 0, "the DistTable path never launched the expand kernel")
+    log(f"DistTable path: expand kernel calls {k2_dt}")
+    time_dist(dt_work, MUST_EXCHANGE_DT)
+    del dt_work
+    k2_dt_rows, k2_err6 = k2_at_shapes(dt_k2)
+    del dt_k2
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
@@ -2570,10 +2898,10 @@ def main():
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/expand.cu",
         "replaces": "radix_sort_tpu/ops/expand.py:330",
-        "launches": k2_launches + k2_table + k2_sql + k2_dist,
+        "launches": k2_launches + k2_table + k2_sql + k2_dist + k2_dt,
         "launches_by_path": {"join": k2_launches, "table": k2_table, "sql": k2_sql,
-                             "dist": k2_dist},
-        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4, k2_err5),
+                             "dist": k2_dist, "dist_table": k2_dt},
+        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4, k2_err5, k2_err6),
         "ms": r_row["ms"],
         "plain_ms": r_row["plain_ms"],
         "bound_ms": r_row["bound_ms"],
@@ -2581,7 +2909,7 @@ def main():
         "library_ms": r_row["library_ms"],
         "shape": "R: the repeat call, one i32 column (torch.repeat_interleave computes "
                  "the same); every shape in calls",
-        "calls": k2_rows + k2_table_rows + k2_sql_rows + k2_dist_rows,
+        "calls": k2_rows + k2_table_rows + k2_sql_rows + k2_dist_rows + k2_dt_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -20,9 +20,10 @@ and ``sql()``) and the LSD ladder of ``ops/xla_radix`` as the
 distributed layer (``parallel``: a mesh of shard slots, several of which
 may share one card, the distributed sort, GROUP BY, join, DISTINCT, top-k,
 quantiles, filter, UNNEST and set operators); the kernels are built at
-first use. ``Table`` puts its columns on the GPU unless it is given
-``device="cpu"``. ``Table.from_csv``, ``DistTable`` and the distributed
-windows and ASOF joins are not ported yet (ROADMAP.md).
+first use, and its second slice: the distributed windows and ASOF joins
+and ``DistTable``, the sharded relation facade (``parallel.dist_table``,
+exported lazily). ``Table`` puts its columns on the GPU unless it is given
+``device="cpu"``. ``Table.from_csv`` is not ported yet (ROADMAP.md).
 """
 
 from radix_sort_tpu_torch import config, dates, keys, nulls, strings
@@ -76,6 +77,10 @@ def __getattr__(name):
         from radix_sort_tpu_torch.plan import LazyTable
 
         return LazyTable
+    if name == "DistTable":
+        from radix_sort_tpu_torch.parallel.dist_table import DistTable
+
+        return DistTable
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -87,6 +92,7 @@ __all__ = [
     "dates",
     "Table",
     "LazyTable",
+    "DistTable",
     "col",
     "lit",
     "udf",

@@ -17,7 +17,8 @@ processes with two slots each, and one process per card.
 
 Every all-gather runs inside the ``torch.profiler`` range
 :data:`GATHER_RANGE`, and every move of rows between slots (the exchanges
-of :mod:`.dist_sort`) inside :data:`EXCHANGE_RANGE`; the two never nest,
+of :mod:`.dist_sort`, the routes home and the neighbour shifts of
+:mod:`.dist_window`) inside :data:`EXCHANGE_RANGE`; the two never nest,
 so a profile reads each one's device time apart. A range costs nothing
 while no profiler runs.
 """
@@ -27,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "any_true", "all_to_all", "cat", "EXCHANGE_RANGE", "GATHER_RANGE"]
+__all__ = ["all_gather", "any_true", "all_to_all", "cat", "shift", "EXCHANGE_RANGE",
+           "GATHER_RANGE"]
 
 EXCHANGE_RANGE = "distributed exchange"
 GATHER_RANGE = "distributed all-gather"
@@ -109,3 +111,27 @@ def all_to_all(mesh, pieces, sizes):
                 recv[j][s] = rbuf[off:off + nb].view(dtype).to(mesh.devices[j])
                 off += nb
     return recv
+
+
+def shift(mesh, xs, offset: int):
+    """Neighbour shift (the JAX package's ``ppermute`` by ``offset`` slots):
+    ``xs[i]``, local slot i's 1-D tensor (one shape and dtype on every
+    slot), goes to global slot ``slot + offset``. Returns one tensor per
+    local slot, on its device: what slot ``slot - offset`` sent, or zeros
+    where there is no such slot. Runs in :data:`EXCHANGE_RANGE`."""
+    P = mesh.size
+    n = xs[0].shape[0]
+    with torch.profiler.record_function(EXCHANGE_RANGE):
+        if not mesh.multiprocess:
+            src = {s: x for s, x in zip(mesh.local, xs)}
+            return [src[d - offset].to(dev) if 0 <= d - offset < P
+                    else torch.zeros_like(xs[0], device=dev)
+                    for d, dev in zip(mesh.local, mesh.devices)]
+        # an exact-count exchange with one non-empty piece per source
+        sizes = [[n if d == s + offset else 0 for d in range(P)] for s in range(P)]
+        pieces = [[x if d == s + offset else x[:0] for d in range(P)]
+                  for s, x in zip(mesh.local, xs)]
+        recv = all_to_all(mesh, pieces, sizes)
+        return [recv[j][d - offset] if 0 <= d - offset < P
+                else torch.zeros_like(xs[0], device=dev)
+                for j, (d, dev) in enumerate(zip(mesh.local, mesh.devices))]

@@ -375,6 +375,50 @@ def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None,
     return [x[:nk] for x in recv], [x[nk:] for x in recv], counts, overflow
 
 
+def _route_home(mesh, slot_pos, slot_cols, n_local):
+    """Send rows home by global position (the reference's exchange by fixed
+    position splitters ``(d+1) * n_local``). ``slot_pos[i]``: the int32 or
+    int64 global positions of local slot i's rows, ``slot_cols[i]`` a list
+    of 1-D columns of the same length. Across all slots every position in
+    ``[0, P n_local)`` appears exactly once, so every destination receives
+    exactly its ``n_local`` rows and the route cannot overflow (positions
+    may also end early: the rows past the last one are zeros). Returns, per
+    local slot, its columns in position order (a scatter by position, no
+    sort)."""
+    P = mesh.size
+    cuts = [(d + 1) * n_local for d in range(P - 1)]
+    srt, sizes_local = [], []
+    for pos, cols in zip(slot_pos, slot_cols):
+        sp, order = torch.sort(pos.to(torch.int64), stable=True)
+        srt.append((sp, [Q._signed(c)[order] for c in cols]))
+        bounds = torch.searchsorted(sp, torch.tensor(cuts, dtype=torch.int64,
+                                                     device=sp.device))
+        edges = torch.cat([sp.new_zeros((1,)), bounds, sp.new_full((1,), sp.shape[0])])
+        sizes_local.append(edges[1:] - edges[:-1])
+    sizes = C.all_gather(mesh, sizes_local).reshape(P, P).tolist()
+    starts = [[sum(sizes[s][:d]) for d in range(P)] for s in range(P)]
+    ncols = len(slot_cols[0])
+    with torch.profiler.record_function(C.EXCHANGE_RANGE):
+        got = []
+        for k in range(ncols + 1):
+            pieces = []
+            for (sp, cs), s in zip(srt, mesh.local):
+                x = sp if k == 0 else cs[k - 1]
+                pieces.append([x[starts[s][d]:starts[s][d] + sizes[s][d]] for d in range(P)])
+            got.append(C.all_to_all(mesh, pieces, sizes))
+    outs = []
+    for j, d in enumerate(mesh.local):
+        pos = torch.cat(got[0][j]) - d * n_local
+        cols = []
+        for k, src in enumerate(slot_cols[0]):
+            vals = torch.cat(got[k + 1][j])
+            out = torch.zeros((n_local,), dtype=vals.dtype, device=vals.device)
+            out[pos] = vals
+            cols.append(out.view(src.dtype))
+        outs.append(cols)
+    return outs
+
+
 def _global_sort_fallback(mesh, limbs, vals, capacity, fills):
     """The replicated exact path in the padded per-slot layout (overflow
     insurance): gather every input operand, sort once, give slot s rows

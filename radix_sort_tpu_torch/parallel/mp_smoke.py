@@ -8,14 +8,15 @@ engine across the process boundary, checked against numpy oracles:
   1. ``distributed_sort_pairs`` on uniform keys and on duplicate-heavy keys
      (seven distinct values: stability decides the payload order, and runs
      of equal keys split across processes), with the ragged and the
-     pipelined exchange;
-  2. one ``distributed_hash_join`` (a left join: unmatched rows and the
-     padding masks of the received shards) and one
+     pipelined exchange.
+     Then one ``distributed_hash_join`` (a left join: unmatched rows and
+     the padding masks of the received shards) and one
      ``distributed_hash_aggregate`` (sum, count and median by key: the
-     two-phase plan and the shuffle plan).
-
-The JAX module's sections 2 and 3 (a ``DistTable`` pipeline and SQL across
-the boundary) wait for the port of ``dist_table.py``.
+     two-phase plan and the shuffle plan);
+  2. a ``DistTable`` pipeline: a filter, then a GROUP BY (sum and count);
+  3. SQL over a ``DistTable`` fact side and a ``Table`` dimension: the
+     planner's eager-aggregation rewrite turns the join into a broadcast
+     lookup join (``join[lookup on sym]`` in the plan).
 
 Every process holds the same seeded numpy inputs, owns only its slots'
 blocks, and checks the gathered outputs itself; it prints ``MP_SMOKE_OK``
@@ -76,7 +77,7 @@ def run_smoke(coordinator: str, num_processes: int, process_id: int,
     _check_sort(mesh, step, vals, "step_dups")
     _check_sort(mesh, step, vals, "pipelined", exchange="pipelined")
 
-    # --- 2. a left join and a GROUP BY across the boundary
+    # --- 1 (cont.). a left join and a GROUP BY across the boundary
     lk = rng.integers(0, 300, n).astype(np.uint32)
     lv = np.arange(n, dtype=np.int32)
     rk = rng.integers(0, 200, n).astype(np.uint32)
@@ -111,6 +112,38 @@ def run_smoke(coordinator: str, num_processes: int, process_id: int,
         q = qty[sym == g]
         assert s[i] == q.sum() and c[i] == len(q), "aggregate sum/count"
         assert med[i] == np.sort(q)[(len(q) - 1) // 2], "aggregate median"
+
+    # --- 2. a DistTable pipeline: filter, then a distributed aggregate
+    import radix_sort_tpu_torch as rst
+
+    sym = rng.integers(0, 11, n).astype(np.uint32)
+    qty = rng.integers(1, 100, n).astype(np.uint32)
+    dt = rst.DistTable({"sym": sym, "qty": qty}, mesh)
+    agg = dt.filter(rst.col("qty") > 50).aggregate(
+        "sym", {"vol": ("sum", "qty"), "n": ("count", "qty")}, max_groups=32)
+    out = agg.to_numpy()
+    keep = qty > 50
+    uks = np.unique(sym[keep])
+    np.testing.assert_array_equal(out["sym"], uks, err_msg="dist_table keys")
+    for i, u in enumerate(uks):
+        g = qty[keep][sym[keep] == u]
+        assert out["vol"][i] == g.sum(), "dist_table vol"
+        assert out["n"][i] == len(g), "dist_table count"
+
+    # --- 3. SQL across the boundary: the eager-aggregated lookup join
+    dsym = np.repeat(np.arange(8, dtype=np.uint32), 2)  # fanout 2
+    dim = rst.Table({"sym": dsym, "seg": (dsym % 3).astype(np.uint32)}, device=mesh.home)
+    lq = rst.sql("SELECT sym, SUM(qty) AS vol, COUNT(*) AS cnt FROM f JOIN d USING (sym) "
+                 "WHERE seg < 2 GROUP BY sym ORDER BY sym", {"f": dt, "d": dim}, max_groups=32)
+    assert "join[lookup on sym]" in lq.explain(), "eager-aggregation rewrite"
+    got = lq.collect().to_numpy()
+    dkeep = np.unique(dsym[dsym % 3 < 2])
+    uks = np.array([u for u in np.unique(sym) if u in dkeep])
+    np.testing.assert_array_equal(got["sym"], uks, err_msg="sql sym")
+    for i, u in enumerate(uks):
+        g = qty[sym == u]
+        assert int(got["vol"][i]) == 2 * int(g.sum()), "sql vol"
+        assert int(got["cnt"][i]) == 2 * len(g), "sql cnt"
 
     print(f"MP_SMOKE_OK process={process_id}/{num_processes} slots={P} "
           f"local={devices_per_process}", flush=True)

@@ -1017,6 +1017,9 @@ def _value(x, table, dicts=False):
     With ``dicts=True`` (the with_columns path) a string-valued
     expression comes back as a ``strings.DictColumn`` so the facade can
     attach its output dictionary."""
+    if (isinstance(x, Expr) or callable(x)) and hasattr(table, "per_slot"):
+        # a DistTable evaluates expressions and callables slot by slot
+        return table.per_slot(lambda view: _value(x, view, dicts))
     if isinstance(x, Expr):
         if dicts:
             sr = x.string_result(table)

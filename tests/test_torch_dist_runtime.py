@@ -1,9 +1,10 @@
 """The port's mesh, row sharding and collectives (parallel/runtime.py,
 parallel/collectives.py), and a real 2-process cluster: two gloo processes
 with two CPU slots each run the port's ``mp_smoke`` (distributed sorts,
-a left join and a GROUP BY across the process boundary, each checked
-against numpy inside every process), as ``tests/test_dist_multiprocess.py``
-runs the JAX package's.
+a left join and a GROUP BY, a DistTable filter and aggregate, and SQL with
+the eager-aggregation lookup join across the process boundary, each
+checked against numpy inside every process), as
+``tests/test_dist_multiprocess.py`` runs the JAX package's.
 """
 
 import numpy as np

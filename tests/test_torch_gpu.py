@@ -561,3 +561,91 @@ def test_distributed_on_a_four_slot_card_mesh(cuda):
                                         total_size_per_shard=1 << 16)
     assert expand.LAUNCHES - before == 4
     assert torch.equal(_slot_rows(got[0], got[1]).cpu(), torch.repeat_interleave(lv, counts))
+
+
+def _dist_pair(rng, n, frac):
+    from radix_sort_tpu_torch.parallel import runtime
+    from radix_sort_tpu_torch.parallel.dist_table import DistTable
+
+    cols = {"k": rng.integers(0, 50, n).astype(np.uint32),
+            "v": rng.integers(-500, 500, n).astype(np.int32),
+            "w": rng.standard_normal(n).astype(np.float32)}
+    out = []
+    for dev in ("cuda", "cpu"):
+        t = rst.Table(cols, int(n * frac), device=dev)
+        out.append(DistTable.from_table(t, runtime.data_mesh(4, device=dev)))
+    return out
+
+
+def _same_np(a, b):
+    a, b = a.to_numpy(), b.to_numpy()
+    assert list(a) == list(b)
+    for c in a:
+        assert np.array_equal(np.ma.getdata(a[c]), np.ma.getdata(b[c])), c
+        assert np.array_equal(np.ma.getmaskarray(a[c]), np.ma.getmaskarray(b[c])), c
+
+
+@pytest.mark.cuda
+def test_dist_table_pipeline_on_a_four_slot_card_mesh(cuda):
+    """A small DistTable pipeline on 4 slots of the card against the same
+    calls on 4 CPU slots: filter, sort_by, window (halo and carry paths,
+    no fallback), aggregate and concat bit for bit; the join and the UNNEST
+    launch K2 once per slot."""
+    from radix_sort_tpu_torch.parallel import dist_window
+    from radix_sort_tpu_torch.parallel.dist_table import DistTable
+
+    rng = np.random.default_rng(12)
+    n = 4 * 4096
+    card, cpu = _dist_pair(rng, n, 0.8)
+    assert card["k"].blocks[0].is_cuda and card.counts.is_cuda
+    for f in (lambda d: d.filter(rst.col("v") > 0),
+              lambda d: d.sort_by(["k", "w"], descending=[False, True]),
+              lambda d: d.concat(d.filter(rst.col("k") < 5))):
+        _same_np(f(card), f(cpu))
+    ops = {"rn": "row_number", "rk": "rank", "cs": ("cumsum", "v"), "mx": ("max", "w"),
+           "lg": ("lag", "v", 2), "ld": ("lead", "w", 1), "rs": ("rolling_sum", "v", 3, 1),
+           "rr": ("range_count", 0.25, 0.25), "nv": ("nth_value", "v", 3)}
+    got = card.window(ops, partition_by="k", order_by="w")
+    assert dist_window._last_fallback is False
+    _same_np(got, cpu.window(ops, partition_by="k", order_by="w"))
+    aggs = {"s": ("sum", "v"), "n": "count", "m": ("median", "v")}
+    _same_np(card.aggregate("k", aggs, max_groups=64), cpu.aggregate("k", aggs, max_groups=64))
+    right = {"k": np.arange(50, dtype=np.uint32).repeat(4), "p": np.arange(200, dtype=np.int32)}
+    before = expand.LAUNCHES
+    dj, ovf = card.join(DistTable(right, card.mesh), "k", capacity_per_shard=1 << 16, how="left")
+    assert expand.LAUNCHES - before == 4 and not bool(ovf)
+    wj, _ = cpu.join(DistTable(right, cpu.mesh), "k", capacity_per_shard=1 << 16, how="left")
+    a, b = dj.to_numpy(), wj.to_numpy()
+    rows = [sorted(zip(*(np.ma.filled(x[c], 0).tolist() for c in sorted(x)))) for x in (a, b)]
+    assert rows[0] == rows[1]
+    c = np.tile([2, 0, 1, 3], n // 4).astype(np.int32)
+    before = expand.LAUNCHES
+    du, uovf = card.with_columns(c=c).unnest("c", total_size_per_shard=1 << 15)
+    assert expand.LAUNCHES - before == 4 and not bool(uovf)
+    _same_np(du, cpu.with_columns(c=c).unnest("c", total_size_per_shard=1 << 15)[0])
+
+
+@pytest.mark.cuda
+def test_dist_table_sql_and_asof_on_card(cuda):
+    """SQL over DistTable sources on the card (the eager-aggregation lookup
+    join) and a distributed ASOF join, against the same calls on CPU slots."""
+    from radix_sort_tpu_torch.parallel import runtime
+    from radix_sort_tpu_torch.parallel.dist_table import DistTable
+
+    rng = np.random.default_rng(13)
+    n = 4 * 2048
+    card, cpu = _dist_pair(rng, n, 1.0)
+    dim = {"k": np.arange(50, dtype=np.uint32).repeat(2), "seg": np.tile([0, 1], 50)}
+    q = ("SELECT k, SUM(v) AS s, COUNT(*) AS c FROM f JOIN d USING (k) WHERE seg = 1 "
+         "GROUP BY k ORDER BY k")
+    got = rst.sql(q, {"f": card, "d": rst.Table(dim)}, max_groups=64)
+    assert "join[lookup on k]" in got.explain()
+    _same_np(got.collect(), rst.sql(q, {"f": cpu, "d": rst.Table(dim, device="cpu")},
+                                    max_groups=64).collect())
+    rt = {"k": np.sort(rng.integers(0, 50, 4 * 64)).astype(np.uint32),
+          "px": np.arange(4 * 64, dtype=np.int32)}
+    for kw in ({"direction": "backward"}, {"direction": "nearest", "tolerance": 1}):
+        a = card.join_asof(DistTable(rt, runtime.data_mesh(4, device="cuda")), "k",
+                           matched_col="m", **kw)
+        b = cpu.join_asof(DistTable(rt, cpu.mesh), "k", matched_col="m", **kw)
+        _same_np(a, b)

@@ -195,10 +195,8 @@ def test_quantiles_errors():
 
 
 def test_package_exports_match_reference():
-    """The port exports every public name of the JAX package but the one
-    still to port (the distributed table), and lists the ``nulls`` and
-    ``dates`` modules beside ``strings`` (the JAX package has them as
-    submodules only)."""
-    unported = {"DistTable"}
-    assert set(jrst.__all__) - unported == set(trst.__all__) - {"nulls", "dates"}
+    """The port exports every public name of the JAX package, and lists the
+    ``nulls`` and ``dates`` modules beside ``strings`` (the JAX package has
+    them as submodules only)."""
+    assert set(jrst.__all__) == set(trst.__all__) - {"nulls", "dates"}
     assert all(hasattr(trst, name) for name in trst.__all__)
