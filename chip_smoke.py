@@ -96,7 +96,32 @@ together) and drives the port's two paths:
     replicated fallback (none may be taken) read around the call; one
     ``explain()`` shows the broadcast ``join[lookup on ...]``. Each is
     timed as phase 11 times its workloads, then K2 is held bit-exact
-    against its plain version at every slot's expansion. Phase 2 also runs the LSD ladder's engines
+    against its plain version at every slot's expansion;
+  * the demo CLI and the host modules (phase 13): (a) the reference's
+    sweep through ``demo.main`` -- (u32,u32) and (u64,u64) rows at
+    0.5-4.0 GB (500M u32 rows at the top) with the comparator and the
+    kernel engine, then zipf, geometric and step-uniform keys at 0.5 and
+    4.0 GB -- each batch first held bit-exact across both engines and a
+    stable ``torch.sort``, with no comparator fallback, and K1 against its
+    plain version at the u32 rows' shapes; (b) a 1 GB zipf dataset
+    through ``--gen-data`` / ``--data``, read back bit for bit; (c) the
+    ops and queries suites at the demo's defaults, every op and query
+    again at 2**20 rows on the card and on the CPU from the same builder
+    (integers bit for bit, floats within the summation bound of their own
+    group's row count, the variance against the exact one), K2 held
+    bit-exact at the suites' expansions; (d) TPC-H SF1 LINEITEM, ORDERS
+    and CUSTOMER written as '|'-delimited text, loaded with
+    ``Table.from_csv`` through the native loader (every column checked;
+    its parse and upload timed again alone with
+    ``utils/profiling.PhaseTimer``), Q1 and Q3 as SQL over them equal to
+    the same SQL over Tables built from the numpy columns (floats within
+    their groups' summation bound),
+    ``strings.encode`` / ``unify`` and the native intern against numpy,
+    and the native host sort against numpy beside the card's
+    ``torch.sort``; (e) the three examples against their numpy oracles,
+    with their K1 and K2 launches counted and each kernel held bit-exact
+    against its plain version at the examples' shapes.
+    Phase 2 also runs the LSD ladder's engines
     (``implementation="xla_argsort"`` / ``"xla_rank"``) on 2**20 uint32 and
     uint64 keys against a stable ``torch.sort``.
 
@@ -111,17 +136,27 @@ before it is the per-kernel JSON record.
 from __future__ import annotations
 
 import datetime
+import functools
 import json
+import multiprocessing
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import radix_sort_tpu_torch as rst
-from radix_sort_tpu_torch import _build, keys
+from radix_sort_tpu_torch import _build, demo, keys, native
+from radix_sort_tpu_torch.examples import dist_table_demo as ex_dist
+from radix_sort_tpu_torch.examples import query_demo as ex_query
+from radix_sort_tpu_torch.examples import table_demo as ex_table
+from radix_sort_tpu_torch.native import csvio
+from radix_sort_tpu_torch.native import host as nhost
 from radix_sort_tpu_torch.table import Table
 from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, sample_sort
 from radix_sort_tpu_torch.parallel import collectives as rcoll
@@ -131,6 +166,8 @@ from radix_sort_tpu_torch.parallel import dist_sort as rdsort
 from radix_sort_tpu_torch.parallel import dist_window as rdw
 from radix_sort_tpu_torch.parallel import runtime as rdist
 from radix_sort_tpu_torch.utils import distributions as dist
+from radix_sort_tpu_torch.utils import io as rio
+from radix_sort_tpu_torch.utils import profiling
 from radix_sort_tpu_torch.utils import timing
 
 SEED = 0
@@ -469,13 +506,19 @@ def k1_against_plain(calls, what):
     in turns beside its bound: ((kernel, plain, bound) ms summed over the
     calls, max abs err)."""
     total_k = total_p = total_b = 0.0
-    pairs = []
-    for ops, bounds, kw in calls:
+    err, n_calls = 0, len(calls)
+    while calls:
+        # each call's inputs are let go once it is checked: at 500M rows the
+        # inputs of every call, one call's outputs and its plain version's
+        # do not fit on the card together
+        ops, bounds, kw = calls.pop(0)
+        torch.cuda.empty_cache()
         got, gc = extract.bucket_extract(ops, bounds, **kw)
         ref, rc = extract.bucket_extract_plain(ops, bounds, **kw)
         check(torch.equal(gc, rc) and all(torch.equal(g, r) for g, r in zip(got, ref)),
               f"K1 differs from plain at the {what} shapes")
-        pairs += [(gc, rc)] + list(zip(got, ref))
+        # per call: the outputs of every call of a 500M-row sort do not fit together
+        err = max(err, max_abs_err([(gc, rc)] + list(zip(got, ref))))
         del got, ref
         mk, mp, _ = interleaved_ms(lambda: extract.bucket_extract(ops, bounds, **kw),
                                    lambda: extract.bucket_extract_plain(ops, bounds, **kw))
@@ -490,10 +533,10 @@ def k1_against_plain(calls, what):
             f"cpb={kw['chunks_per_bucket']} ops={len(ops)} words/op={ops[0].numel():,}: "
             f"kernel {mk:.3f} ms ({nbytes / mk / 1e6:.0f} GB/s of read+write), "
             f"plain {mp:.3f} ms, bound {bound:.3f} ms")
-    log(f"K1 per {what} call ({len(calls)} calls): {total_k:.3f} ms, plain {total_p:.3f} ms, "
+    log(f"K1 per {what} call ({n_calls} calls): {total_k:.3f} ms, plain {total_p:.3f} ms, "
         f"bound {total_b:.3f} ms")
-    return {"calls": len(calls), "ms": total_k, "plain_ms": total_p,
-            "bound_ms": total_b}, max_abs_err(pairs)
+    return {"calls": n_calls, "ms": total_k, "plain_ms": total_p,
+            "bound_ms": total_b}, err
 
 
 def interleaved_ms(kernel, plain, library=None):
@@ -2774,6 +2817,706 @@ def rows_in(label, li, orders, customer):
 
 
 
+# ---------------------------------------------------------------- phase 13
+
+# the demo CLI (the reference's `cargo run -r`), persisted datasets, the
+# demo's ops and queries suites, a TPC-H SF1 load from text into SQL, the
+# native host sort and string interning, and the examples
+DEMO_SIZES = ("0.5", "1.0", "1.5", "2.0", "2.5", "3.0", "3.5", "4.0")  # GB, src/main.rs:104
+DEMO_RUNS = 5
+DEMO_OTHER = (("zipf", ("--zipf-s", "1.1")), ("geometric", ()),
+              ("step_uniform", ("--steps", "1000")))
+DEMO_OTHER_SIZES = ("0.5", "4.0")
+DEMO_GEN_ROWS = "1.25e8"  # 1 GB of u64 keys
+DEMO_OPS_N = 1 << 24  # the demo's --ops-n and --groups defaults
+DEMO_GROUPS = 1 << 20
+DEMO_SMALL = 1 << 20  # the card-against-CPU runs of every op and query
+# TPC-H SF1 (specification 4.2.3 and 4.2.5): ORDERS 1.5M, CUSTOMER 150k,
+# PART 200k, SUPPLIER 10k, LINEITEM 1-7 rows per order
+SF1_ORDERS, SF1_CUSTOMERS, SF1_PARTS, SF1_SUPPLIERS = 1_500_000, 150_000, 200_000, 10_000
+SF1_CAPACITY = 1 << 23  # Q3's joins: every LINEITEM row (~6M) joins
+# the columns of phase 10's S1 (Q1) and S2 (Q3)
+S_COLUMNS = ("l_orderkey", "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+             "l_discount", "l_tax", "l_shipdate", "o_orderkey", "o_custkey", "o_orderdate",
+             "o_shippriority", "c_custkey", "c_mktsegment")
+HOST_SORT_ROWS = MAIN_ROWS[0]  # 31.25M (u64,u64) rows, the sweep's 0.5 GB point
+WRITE_WORKERS = 8
+# the words dbgen's text grammar draws from (4.2.2.10), for comments
+TEXT_WORDS = (
+    "furiously sly careful blithe quick fluffy slow quiet ruthless thin close dogged daring "
+    "brave stealthy permanent enticing idle busy regular final ironic even bold silent "
+    "packages requests accounts deposits foxes ideas theodolites pinto beans instructions "
+    "dependencies excuses platelets asymptotes courts dolphins multipliers sauternes warthogs "
+    "frets dinos attainments somas tithes waters orbits pearls sleep wake are cajole haggle "
+    "nag use boost affix detect integrate maintain nod was lose sublate solve thrash promise "
+    "engage hinder print x-ray breach eat grow impress mold poach serve run dazzle snooze doze "
+    "unwind kindle play hang believe doubt about above according to across after against "
+    "along alongside among around at atop before behind beneath beside besides between "
+    "beyond by despite during except for from inside instead of into near of on outside "
+    "over past since through throughout to toward under until up upon without with within"
+).split()
+SEGMENT_NAMES = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+INSTRUCTIONS = ("DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN")
+MODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+
+
+def _demo(*argv):
+    """One run of the port's demo CLI (its lines go to standard output)."""
+    t0 = time.perf_counter()
+    demo.main([*argv, "--device", DEV])
+    return time.perf_counter() - t0
+
+
+def _i32(t):
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def demo_sort_checks(gen):
+    """One batch of each (row type, distribution, size) of 13a made by the
+    demo's generators, sorted by both of its engines and held bit for bit
+    against a stable ``torch.sort``; the payload is the row index, so the
+    check sees stability. K1 is first held against its plain version on the
+    calls of one more u32 sort at the first and the last size, whose rows
+    are let go before the check (at 500M rows the recorded calls, their
+    plain versions and the checked batch do not fit together). Returns (K1
+    rows, max abs err)."""
+    points = [("uniform", (), s) for s in DEMO_SIZES]
+    points += [(d, kw, s) for d, kw in DEMO_OTHER for s in DEMO_OTHER_SIZES]
+    k1_rows, k1_err = {}, 0
+    for dt_name in ("u32", "u64"):
+        fns = demo._engine_fns(dt_name, ["comparator", "pallas"])
+        for dist_name, kw, gb in points:
+            args = demo._parse_args(["--dist", dist_name, *kw])
+            n = int(float(gb) * 1e9 / {"u32": 8, "u64": 16}[dt_name])
+            if dt_name == "u32" and dist_name == "uniform" and gb in (DEMO_SIZES[0],
+                                                                       DEMO_SIZES[-1]):
+                calls = record_k1(lambda: fns["pallas"](demo._make_rows(gen, n, dt_name, args)))
+                k1_rows[f"u32 {gb} GB"], e = k1_against_plain(
+                    calls, f"demo (u32,u32) {gb} GB ({n:,} rows)")
+                k1_err = max(k1_err, e)
+                del calls
+                torch.cuda.empty_cache()
+            rows = demo._make_rows(gen, n, dt_name, args)
+            if dt_name == "u64":
+                idx = keys.split64(torch.arange(n, dtype=torch.int64, device=DEV) ^ (-(1 << 63)))
+                rows = (rows[0], rows[1], *idx)
+                del idx
+            else:
+                rows = (rows[0], torch.arange(n, dtype=torch.int32, device=DEV).view(torch.uint32))
+            if dt_name == "u64":
+                srt = torch.sort(keys.merge64(rows[0], rows[1]), stable=True)
+                want = (*keys.split64(srt.values), rows[2][srt.indices], rows[3][srt.indices])
+            else:
+                srt = torch.sort(keys.encode(rows[0]), stable=True)
+                want = (_i32(rows[0])[srt.indices], _i32(rows[1])[srt.indices])
+            distinct = int(torch.unique_consecutive(srt.values).shape[0])
+            del srt
+            for eng, fn in fns.items():
+                got = fn(rows)
+                check(all(torch.equal(_i32(g), _i32(w)) for g, w in zip(got, want)),
+                      f"13a: {eng} differs from a stable torch.sort on ({dt_name},{dt_name}) "
+                      f"{dist_name} rows at {gb} GB")
+                del got
+            log(f"13a check: ({dt_name},{dt_name}) {dist_name} {gb} GB = {n:,} rows "
+                f"({distinct:,} distinct keys): comparator and pallas bit-exact against a "
+                f"stable torch.sort")
+            del rows, want
+            torch.cuda.empty_cache()
+    return k1_rows, k1_err
+
+
+def demo_sweep(gen):
+    """13a: the reference's sweep through the port's CLI, both row types and
+    both engines, then the other three distributions, each batch checked
+    first. Returns (K1 launches in the timed sweep, K1 rows, max err)."""
+    before = sample_sort.FALLBACKS
+    k1_rows, k1_err = demo_sort_checks(gen)
+    torch.cuda.empty_cache()
+    extract.LAUNCHES = 0
+    t = _demo("--sizes", *DEMO_SIZES, "--dtypes", "u32", "u64",
+              "--engines", "comparator", "pallas", "--runs", str(DEMO_RUNS))
+    log(f"13a sweep: {t:.1f} s")
+    for dist_name, kw in DEMO_OTHER:
+        t = _demo("--sizes", *DEMO_OTHER_SIZES, "--dtypes", "u32", "u64", "--dist", dist_name,
+                  *kw, "--engines", "comparator", "pallas", "--runs", str(DEMO_RUNS))
+        log(f"13a {dist_name}: {t:.1f} s")
+    launches = extract.LAUNCHES
+    check(launches > 0, "the demo's sweep never launched the extract kernel")
+    check(sample_sort.FALLBACKS == before,
+          f"13a: the sample engine fell back to the comparator "
+          f"{sample_sort.FALLBACKS - before} times")
+    log(f"13a: extract kernel calls {launches}; no comparator fallback")
+    return launches, k1_rows, k1_err
+
+
+def demo_datasets():
+    """13b: a persisted 1 GB zipf dataset, written by the CLI, read back bit
+    for bit and sorted by both engines from the file."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "zipf.raw")
+        t = _demo("--gen-data", path, "--n", DEMO_GEN_ROWS, "--dist", "zipf", "--dtypes", "u64")
+        arr = rio.read_raw(path)
+        # the same draw: the demo's --seed 0 and the zipf exponent 1.1
+        want = dist.zipf(torch.Generator(device=DEV).manual_seed(0), int(float(DEMO_GEN_ROWS)),
+                         torch.uint64, s=1.1).view(torch.int64).cpu().numpy().view(np.uint64)
+        check(arr.dtype == np.uint64 and np.array_equal(arr, want),
+              "13b: read_raw does not return the generated keys")
+        log(f"13b: --gen-data {t:.1f} s; read_raw returns the {arr.size:,} generated keys "
+            f"bit for bit ({np.unique(arr[:1 << 22]).shape[0]:,} distinct of the first 4M)")
+        del arr, want
+        _demo("--data", path, "--engines", "comparator", "pallas", "--runs", "3")
+
+
+def _nonneg_bound(a, b, m, mean=False):
+    """The allowed |a - b| of two float sums (or means) of the same ``m``
+    non-negative terms, added in different orders: each is within
+    (m - 1) u S of the exact sum S (phase 8's bound; here S = sum|x|), and
+    S <= |v| / (1 - (m - 1) u) for either computed sum v; a mean adds its
+    division's rounding."""
+    u = U32 if a.dtype == np.float32 else U64
+    k = np.maximum(np.asarray(m, np.float64) - 1, 0) * u
+    share = k / (1 - k) + (2 * u if mean else 0.0)
+    return share * (np.abs(a.astype(np.float64)) + np.abs(b.astype(np.float64)))
+
+
+def _var_bound(a, b, k, v, groups):
+    """hash_aggregate(k, v, "var") on the card (``a``) and the CPU (``b``):
+    (keys, var, groups), numpy. Each group's variance is held to the exact
+    one (float64 from ``v``'s integers) within phase 8's two-pass bound,
+    computed with the group's own row count, sum|x| and sum (x - mean)^2;
+    returns the allowed |a - b| of the var column (0 on padding rows)."""
+    keys, num = a[0], int(a[2])
+    v = v.astype(np.float64)
+    m = np.bincount(k, minlength=groups).astype(np.float64)
+    mean = np.bincount(k, weights=v, minlength=groups) / np.maximum(m, 1)
+    s_abs = np.bincount(k, weights=np.abs(v), minlength=groups)
+    s2 = np.bincount(k, weights=(v - mean[k]) ** 2, minlength=groups)
+    g = keys[:num]
+    m, mean, s_abs, s2 = m[g], mean[g], s_abs[g], s2[g]
+    check(bool((m > 0).all()), "demo-hash_aggregate_var: a key that is in no row")
+    b_mean = ((m - 1) * U32 * s_abs + 8 * U64 * s_abs) / m + 2 * U32 * np.abs(mean)
+    var = s2 / m
+    b_var = (m + 3) * U32 * s2 / m + b_mean**2 + 2 * U32 * var + 8 * U64 * s2
+    for side, got in (("card", a[1]), ("CPU", b[1])):
+        err = np.abs(got[:num].astype(np.float64) - var)
+        check(bool((err <= b_var).all()), f"demo-hash_aggregate_var: the {side}'s var "
+              f"beyond its two-pass bound of the exact one")
+    bound = np.zeros(a[1].shape[0])
+    bound[:num] = 2 * b_var
+    return bound
+
+
+def _demo_float_bounds(name, a, b):
+    """{column or index: allowed |card - CPU| per element} of the float
+    results of one 13c entry at DEMO_SMALL rows: sums and means of
+    non-negative terms within the summation bound of their own group's row
+    count (a count the result carries, else counted from the entry's rows),
+    copied floats bit for bit, the variance as _var_bound says."""
+    if name == "demo-hash_aggregate_var":
+        d = demo.ops_data(DEMO_SMALL, DEMO_GROUPS, 0)
+        return {1: _var_bound(a, b, d["k"], d["v"], DEMO_GROUPS)}
+    per_cust = np.bincount(demo.queries_data(DEMO_SMALL, 0)["line"]["custkey"])
+    if name == "demo-q1":
+        return {"rev": _nonneg_bound(a["rev"], b["rev"], a["n"]),
+                "aq": _nonneg_bound(a["aq"], b["aq"], a["n"], mean=True)}
+    if name == "demo-q3":
+        return {"rev": _nonneg_bound(a["rev"], b["rev"], per_cust[a["custkey"]])}
+    if name == "demo-qwin":
+        return {"price": np.zeros(a["price"].shape[0]),
+                "tot": _nonneg_bound(a["tot"], b["tot"], per_cust[a["custkey"]])}
+    if name in ("demo-qdate", "demo-qfan"):
+        return {"rev": _nonneg_bound(a["rev"], b["rev"], a["cnt"])}
+    return {}
+
+
+def _as_numpy(x):
+    """A result (a Table, tensors, or nested dicts / tuples / lists of
+    them) as numpy, unsigned tensors by their bits."""
+    if isinstance(x, Table):
+        return x.to_numpy()
+    if isinstance(x, dict):
+        return {k: _as_numpy(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_as_numpy(v) for v in x)
+    if torch.is_tensor(x):
+        return (_bits(x) if x.dtype in (torch.uint32, torch.uint64) else x).cpu().numpy()
+    return x
+
+
+def _same_numpy(label, a, b, bounds):
+    """Two results as _as_numpy gives them: integers, strings and masks bit
+    for bit, each float column or element within ``bounds`` of its name or
+    index (the allowed |a - b| per element). A float result that has no
+    bound fails. Returns the largest share of its bound any float used."""
+    check(type(a) is type(b), f"{label}: types differ")
+    if isinstance(a, (dict, tuple, list)):
+        keys = list(a) if isinstance(a, dict) else range(len(a))
+        check(len(a) == len(b) and list(keys) == (list(b) if isinstance(b, dict)
+                                                  else list(range(len(b)))),
+              f"{label}: columns differ")
+        return max([_same_numpy(f"{label} {k}", a[k], b[k], {None: bounds.get(k)})
+                    for k in keys] + [0.0])
+    check(a.dtype == b.dtype and a.shape == b.shape, f"{label}: dtype or shape differ")
+    if isinstance(a, np.ma.MaskedArray):
+        check(np.array_equal(np.ma.getmaskarray(a), np.ma.getmaskarray(b)), f"{label}: masks")
+        a, b = np.ma.getdata(a), np.ma.getdata(b)
+    if a.dtype.kind != "f":
+        check(np.array_equal(a, b), f"{label}: values differ")
+        return 0.0
+    bound = bounds.get(None)
+    check(bound is not None, f"{label}: a float result with no stated bound")
+    err = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    check(bool((err <= bound).all()), f"{label}: card and CPU floats beyond the bound")
+    return float(np.max(err / np.maximum(bound, 1e-300), initial=0.0))
+
+
+def demo_suites():
+    """13c: the ops and queries suites at the demo's defaults (their lines),
+    with K2's launches counted around them; every op and query once more at
+    DEMO_SMALL rows on the card and on the CPU (the same builder), held
+    equal (floats by _demo_float_bounds); the K2 expansions of each entry at
+    the demo's size for k2_at_shapes. Returns (K2 launches, K2 workloads)."""
+    expand.LAUNCHES = 0
+    t = _demo("--suite", "ops", "--ops-n", str(DEMO_OPS_N), "--groups", str(DEMO_GROUPS),
+              "--runs", str(DEMO_RUNS))
+    log(f"13c ops suite: {t:.1f} s")
+    t = _demo("--suite", "queries", "--ops-n", str(DEMO_OPS_N), "--runs", str(DEMO_RUNS))
+    log(f"13c queries suite: {t:.1f} s")
+    launches = expand.LAUNCHES
+    check(launches > 0, "the demo's suites never launched the expand kernel")
+    log(f"13c: expand kernel calls {launches}")
+    k2 = {}
+    entries = [(f"demo-{k}", functools.partial(demo.build_op, k, groups=DEMO_GROUPS))
+               for k in demo.OPS]
+    entries += [(f"demo-{k}", functools.partial(demo.build_query, k)) for k in demo.QUERIES]
+    for name, build in entries:
+        fn, args = build(DEMO_OPS_N, 0, DEV)
+        before = expand.LAUNCHES
+        fn(*args)
+        torch.cuda.synchronize()
+        calls = expand.LAUNCHES - before
+        if calls:
+            k2[name] = (lambda fn=fn, args=args: fn(*args), calls)
+        else:
+            del fn, args
+        fn_c, args_c = build(DEMO_SMALL, 0, DEV)
+        fn_h, args_h = build(DEMO_SMALL, 0, "cpu")
+        a, b = _as_numpy(fn_c(*args_c)), _as_numpy(fn_h(*args_h))
+        share = _same_numpy(name, a, b, _demo_float_bounds(name, a, b))
+        log(f"13c {name}: card = CPU at {DEMO_SMALL:,} rows (floats used {share:.2e} of "
+            f"their bound); K2 launches at {DEMO_OPS_N:,} rows: {calls}")
+    return launches, k2
+
+
+def _text(rng, n, lo, hi, pool):
+    """n comments of lo..hi characters cut from ``pool`` at random offsets,
+    as dbgen does (4.2.2.10), as a fixed-width unicode array; the first
+    and last characters are never spaces (the loader strips fields)."""
+    lens = rng.integers(lo, hi + 1, n)
+    offs = rng.integers(0, pool.shape[0] - hi, n)
+    cps = pool[offs[:, None] + np.arange(hi)]
+    cps[np.arange(hi)[None, :] >= lens[:, None]] = 0
+    sp, x = ord(" "), ord("x")
+    cps[:, 0] = np.where(cps[:, 0] == sp, x, cps[:, 0])
+    last = (np.arange(n), lens - 1)
+    cps[last] = np.where(cps[last] == sp, x, cps[last])
+    return np.ascontiguousarray(cps).view(f"<U{hi}").reshape(n)
+
+
+def tpch_sf1(seed):
+    """LINEITEM (16 columns), ORDERS (9) and CUSTOMER (8) of TPC-H 1.4.1 at
+    SF1 as numpy columns, with the spec's value domains (4.2.3): sparse
+    order keys, customers without orders, dates from STARTDATE, money as
+    whole cents (kept as int64 cents; the file holds them with 2 decimals),
+    comments of the spec's lengths cut from a text pool. Returns
+    {table: {column: (kind, array)}} with kind int / money / date / str."""
+    rng = np.random.default_rng(seed)
+    pool = np.array(list(" ".join(rng.choice(TEXT_WORDS, 400_000))), dtype="<U1").view(np.uint32)
+    n_c, n_o = SF1_CUSTOMERS, SF1_ORDERS
+    c_custkey = np.arange(1, n_c + 1, dtype=np.int64)
+    nation = rng.integers(0, 25, n_c)
+    alnum = np.array(list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789,"),
+                     dtype="<U1").view(np.uint32)
+    customer = {
+        "c_custkey": ("int", c_custkey),
+        "c_name": ("str", np.array([f"Customer#{k:09d}" for k in c_custkey.tolist()])),
+        "c_address": ("str", _text(rng, n_c, 10, 40, alnum[rng.integers(0, alnum.shape[0],
+                                                                          1 << 20)])),
+        "c_nationkey": ("int", nation),
+        "c_phone": ("str", np.array([f"{a + 10}-{b}-{c}-{d}" for a, b, c, d in zip(
+            nation.tolist(), rng.integers(100, 1000, n_c).tolist(),
+            rng.integers(100, 1000, n_c).tolist(), rng.integers(1000, 10000, n_c).tolist())])),
+        "c_acctbal": ("money", rng.integers(-99_999, 1_000_000, n_c)),
+        "c_mktsegment": ("str", np.array(SEGMENT_NAMES)[rng.integers(0, 5, n_c)]),
+        "c_comment": ("str", _text(rng, n_c, 29, 116, pool)),
+    }
+    i = np.arange(n_o, dtype=np.int64)
+    orderkey = (i // 8) * 32 + i % 8 + 1  # sparse keys: 8 of every 32
+    u = rng.integers(0, n_c * 2 // 3, n_o)
+    o_custkey = 3 * (u // 2) + 1 + u % 2  # no customer whose key is a multiple of 3
+    orderdate = rng.integers(STARTDATE, ENDDATE - 151 + 1, n_o)
+    per = rng.integers(1, 8, n_o)
+    of = np.repeat(np.arange(n_o), per)
+    n_l = of.shape[0]
+    first = np.cumsum(per) - per
+    partkey = rng.integers(1, SF1_PARTS + 1, n_l)
+    supp_i = rng.integers(0, 4, n_l)
+    suppkey = (partkey + supp_i * (SF1_SUPPLIERS // 4 + (partkey - 1) // SF1_SUPPLIERS)) \
+        % SF1_SUPPLIERS + 1
+    qty = rng.integers(1, 51, n_l)
+    retail = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)  # P_RETAILPRICE cents
+    ext = qty * retail
+    disc, tax = rng.integers(0, 11, n_l), rng.integers(0, 9, n_l)
+    ship = orderdate[of] + rng.integers(1, 122, n_l)
+    commit = orderdate[of] + rng.integers(30, 91, n_l)
+    receipt = ship + rng.integers(1, 31, n_l)
+    rflag = np.where(receipt <= CURRENTDATE, np.where(rng.integers(0, 2, n_l) == 0, "R", "A"),
+                     "N")
+    lstatus = np.where(ship > CURRENTDATE, "O", "F")
+    # O_TOTALPRICE: sum of extendedprice * (1 + tax) * (1 - discount), in cents
+    charge = (ext * (100 + tax) * (100 - disc) + 5_000) // 10_000
+    total = np.bincount(of, weights=charge, minlength=n_o).astype(np.int64)
+    n_f = np.bincount(of, weights=(lstatus == "F").astype(np.float64), minlength=n_o)
+    ostatus = np.where(n_f == per, "F", np.where(n_f == 0, "O", "P"))
+    day = np.datetime64("1970-01-01", "D")
+    lineitem = {
+        "l_orderkey": ("int", orderkey[of]),
+        "l_partkey": ("int", partkey),
+        "l_suppkey": ("int", suppkey),
+        "l_linenumber": ("int", np.arange(n_l) - first[of] + 1),
+        "l_quantity": ("int", qty),
+        "l_extendedprice": ("money", ext),
+        "l_discount": ("money", disc),
+        "l_tax": ("money", tax),
+        "l_returnflag": ("str", rflag),
+        "l_linestatus": ("str", lstatus),
+        "l_shipdate": ("date", day + ship.astype("timedelta64[D]")),
+        "l_commitdate": ("date", day + commit.astype("timedelta64[D]")),
+        "l_receiptdate": ("date", day + receipt.astype("timedelta64[D]")),
+        "l_shipinstruct": ("str", np.array(INSTRUCTIONS)[rng.integers(0, 4, n_l)]),
+        "l_shipmode": ("str", np.array(MODES)[rng.integers(0, 7, n_l)]),
+        "l_comment": ("str", _text(rng, n_l, 10, 43, pool)),
+    }
+    orders = {
+        "o_orderkey": ("int", orderkey),
+        "o_custkey": ("int", o_custkey),
+        "o_orderstatus": ("str", ostatus),
+        "o_totalprice": ("money", total),
+        "o_orderdate": ("date", day + orderdate.astype("timedelta64[D]")),
+        "o_orderpriority": ("str", np.array(PRIORITIES)[rng.integers(0, 5, n_o)]),
+        "o_clerk": ("str", np.array([f"Clerk#{k:09d}" for k in
+                                     rng.integers(1, 1001, n_o).tolist()])),
+        "o_shippriority": ("int", np.zeros(n_o, np.int64)),
+        "o_comment": ("str", _text(rng, n_o, 19, 78, pool)),
+    }
+    return {"lineitem": lineitem, "orders": orders, "customer": customer}
+
+
+def _format(kind, a):
+    """One column as a list of its text fields."""
+    if kind == "money":
+        return [f"-{-c // 100}.{-c % 100:02d}" if c < 0 else f"{c // 100}.{c % 100:02d}"
+                for c in a.tolist()]
+    return a.astype(str).tolist()
+
+
+def _write_part(path, kinds, cols):
+    """Worker: a chunk of rows as '|'-delimited lines into ``path``."""
+    fields = [_format(k, c) for k, c in zip(kinds, cols)]
+    with open(path, "w") as f:
+        f.write("\n".join(map("|".join, zip(*fields))))
+        f.write("\n")
+
+
+def write_tbl(path, table, pool):
+    """A table as dbgen's '|'-delimited layout with a header row, written
+    in row chunks by ``pool``'s worker processes."""
+    names = list(table)
+    kinds = [table[c][0] for c in names]
+    n = table[names[0]][1].shape[0]
+    step = -(-n // (4 * WRITE_WORKERS))
+    parts = [f"{path}.{i}" for i in range(0, n, step)]
+    pool.starmap(_write_part, [(p, kinds, [table[c][1][i:i + step] for c in names])
+                               for p, i in zip(parts, range(0, n, step))])
+    with open(path, "w") as out:
+        out.write("|".join(names) + "\n")
+        out.flush()
+        for p in parts:
+            with open(p) as f:
+                shutil.copyfileobj(f, out, 1 << 24)
+            os.remove(p)
+
+
+def _numpy_value(kind, a):
+    """The column a Table built directly from numpy takes, and what the
+    loaded column must equal: cents as float(text) = cents / 100."""
+    return a / 100 if kind == "money" else a
+
+
+def check_loaded(name, t, table):
+    """Every column of a loaded Table against the numpy column it was
+    written from: strings through their vocabulary, dates as date32 days
+    with no cast, integers as int64, money as float(text)."""
+    for c, (kind, a) in table.items():
+        got = t[c]
+        if kind == "str":
+            vocab = t._dicts[c]
+            dec = vocab[_bits(got).cpu().numpy()]
+            check(np.array_equal(dec, a), f"13d {name}.{c}: strings differ")
+        elif kind == "date":
+            check(got.dtype == torch.int32 and np.array_equal(
+                got.cpu().numpy(), a.astype(np.int64).astype(np.int32)),
+                f"13d {name}.{c}: dates differ")
+        else:
+            want = _numpy_value(kind, a)
+            check(got.dtype == torch.from_numpy(want).dtype and np.array_equal(
+                _bits(got).cpu().numpy(), _bits(torch.from_numpy(want)).numpy()),
+                f"13d {name}.{c}: values differ")
+
+
+def sf1_load():
+    """13d: TPC-H SF1 written as '|'-delimited text, loaded with
+    ``Table.from_csv``, every column checked, Q1 and Q3 as SQL over the
+    loaded tables against the same SQL over Tables built from the numpy
+    columns; ``strings.encode`` / ``unify`` and the native intern on the
+    data against numpy; the native host sort against numpy and the card's
+    ``torch.sort``. After each file's ``from_csv``, its two steps are
+    timed once more on their own: the parse (``utils/io.read_csv_encoded``)
+    and the upload (``Table`` of the parsed columns)."""
+    check(native.native_available() and csvio.csv_native_available(),
+          "13d: the native host libraries did not build")
+    loaded, timer = {}, profiling.PhaseTimer()
+
+    with tempfile.TemporaryDirectory() as d:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(WRITE_WORKERS) as pool:
+            t1 = time.perf_counter()
+            up = pool.map_async(abs, range(WRITE_WORKERS))  # the workers start meanwhile
+            data = tpch_sf1(SEED)
+            log(f"13d: TPC-H SF1 made in {time.perf_counter() - t1:.2f} s: "
+                + ", ".join(f"{k} {v[next(iter(v))][1].shape[0]:,} rows x {len(v)} columns"
+                            for k, v in data.items()))
+            up.get()
+            log(f"13d: {WRITE_WORKERS} writer processes up after {time.perf_counter() - t1:.2f} s")
+            for name, table in data.items():
+                path = os.path.join(d, f"{name}.tbl")
+                t1 = time.perf_counter()
+                write_tbl(path, table, pool)
+                w = time.perf_counter() - t1
+                size = os.path.getsize(path)
+                n = table[next(iter(table))][1].shape[0]
+                torch.cuda.synchronize()
+                with timer.phase(f"{name} from_csv"):
+                    t = rst.Table.from_csv(path, delimiter="|", device=DEV)
+                    timing.sync(list(t._cols.values()))
+                cols, dicts, masks = timer.time_fn(f"{name} parse", functools.partial(
+                    rio.read_csv_encoded, path, delimiter="|"))
+                timer.time_fn(f"{name} upload", lambda: list(rst.Table(
+                    cols, dictionaries=dicts, null_masks=masks or None, device=DEV)._cols.values()))
+                del cols, dicts, masks
+                total, p, up = (ph[1] for ph in timer.phases[-3:])
+                log(f"13d {name}: wrote {size / 1e6:.1f} MB in {w:.2f} s "
+                    f"({WRITE_WORKERS} processes); Table.from_csv {total:.2f} s; its two steps "
+                    f"alone: parse {p:.2f} s ({size / p / 1e6:.1f} MB/s, {n / p / 1e6:.2f} M "
+                    f"rows/s), upload {up:.3f} s")
+                check_loaded(name, t, table)
+                log(f"13d {name}: every column equals the column it was written from")
+                loaded[name] = t
+    log("13d Table.from_csv, then its parse and upload alone, per file:\n" + timer.report())
+    # the columns Q1 and Q3 read, straight from numpy (the comments, names,
+    # addresses and phones they do not read would only add encode time)
+    direct = {name: rst.Table({c: _numpy_value(k, a) for c, (k, a) in table.items()
+                               if c in S_COLUMNS}, device=DEV)
+              for name, table in data.items()}
+    for s, kw in (("S1", {}), ("S2", {"capacity": SF1_CAPACITY})):
+        q, text, _ = S_QUERIES[s]
+        got, ovf = rst.sql(text, loaded, **kw).collect(return_overflow=True)
+        want, wovf = rst.sql(text, direct, **kw).collect(return_overflow=True)
+        check(not bool(ovf) and not bool(wovf), f"13d {s}: a join overflowed")
+        a, b = got.to_numpy(), want.to_numpy()
+        if s == "S1":  # every float is a sum or mean of a group's count_order rows
+            bounds = {c: _nonneg_bound(a[c], b[c], a["count_order"], mean=c.startswith("avg"))
+                      for c in a if a[c].dtype.kind == "f"}
+        else:  # Q3's revenue sums the lineitems of one order
+            per_order = np.bincount(data["lineitem"]["l_orderkey"][1])
+            bounds = {"revenue": _nonneg_bound(a["revenue"], b["revenue"],
+                                               per_order[a["o_orderkey"]])}
+        share = _same_numpy(f"13d {s}: loaded against in-memory tables", a, b, bounds)
+        floats = [c for c in a if a[c].dtype.kind == "f"]
+        same_bits = all(np.array_equal(a[c].view(np.uint8), b[c].view(np.uint8)) for c in floats)
+        log(f"13d {s}: every integer, string and date of the loaded tables' result equals the "
+            f"in-memory tables' bit for bit; the float sums and means "
+            + ("too" if same_bits else f"within {share:.2e} of the summation bound (the "
+               f"card's float index_add_ adds in no fixed order)"))
+        ms = median(timing.cuda_time_ms(lambda: rst.sql(text, loaded, **kw).collect(), runs=5))
+        log(f"13d {s} TPC-H {q} over the loaded SF1 tables: {ms:.3f} ms (median of 5), "
+            f"{len(a[next(iter(a))])} rows")
+    del loaded, direct
+
+    # encode (np.unique) and the native merge against numpy
+    comments = data["lineitem"]["l_comment"][1]
+    t1 = time.perf_counter()
+    codes, vocab = rst.strings.encode(comments)
+    enc = time.perf_counter() - t1
+    nv, inv = np.unique(comments, return_inverse=True)
+    check(nv[0] != "" and vocab[0] == "" and np.array_equal(vocab[1:], nv)
+          and np.array_equal(codes, inv + 1), "13d: strings.encode differs from np.unique")
+    other = rst.strings.encode(data["orders"]["o_comment"][1])[1]
+    t1 = time.perf_counter()
+    union, ra, rb = rst.strings.unify(vocab, other)
+    uni = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    want_u = np.union1d(vocab, other)
+    npu2 = time.perf_counter() - t1
+    check(np.array_equal(union, want_u) and np.array_equal(ra, np.searchsorted(want_u, vocab))
+          and np.array_equal(rb, np.searchsorted(want_u, other)),
+          "13d: strings.unify differs from np.union1d")
+    log(f"13d strings.encode of l_comment ({comments.shape[0]:,} rows, {vocab.shape[0] - 1:,} "
+        f"distinct): {enc:.2f} s (np.unique), equal; strings.unify of the "
+        f"l_comment and o_comment vocabularies ({vocab.shape[0]:,} + {other.shape[0]:,} -> "
+        f"{union.shape[0]:,}): {uni:.2f} s native (np.union1d {npu2:.2f} s), equal")
+    # the native intern beside np.unique on a column of few distinct values
+    modes = data["lineitem"]["l_shipmode"][1]
+    t1 = time.perf_counter()
+    codes0, firsts = csvio.intern_rows(modes)
+    nat = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    nv = np.unique(modes)
+    npu = time.perf_counter() - t1
+    check(sorted(modes[firsts].tolist()) == nv.tolist()
+          and np.array_equal(modes[firsts][codes0], modes),
+          "13d: csvio.intern_rows differs from np.unique")
+    log(f"13d csvio.intern_rows of l_shipmode ({modes.shape[0]:,} rows, {nv.shape[0]} distinct): "
+        f"{nat:.2f} s native, np.unique {npu:.2f} s, the same values")
+    del data, comments, codes, vocab, inv, nv, other, union, want_u, modes, codes0, firsts
+
+    # the native host sort beside the card's torch.sort on the same rows
+    rng = np.random.default_rng(SEED)
+    hk = rng.integers(0, 2**64, HOST_SORT_ROWS, dtype=np.uint64)
+    hv = rng.integers(0, 2**64, HOST_SORT_ROWS, dtype=np.uint64)
+    t1 = time.perf_counter()
+    sk, sv = native.host_sort_pairs(hk, hv)
+    hs = time.perf_counter() - t1
+    perm = np.argsort(hk, kind="stable")
+    check(np.array_equal(sk, hk[perm]) and np.array_equal(sv, hv[perm]),
+          "13d: host_sort_pairs differs from numpy's stable argsort")
+    del perm, sk, sv
+    dk = keys.encode(torch.from_numpy(hk.view(np.int64)).to(DEV).view(torch.uint64))
+    dv = torch.from_numpy(hv.view(np.int64)).to(DEV)
+
+    def card():
+        s = torch.sort(dk, stable=True)
+        return s.values, dv[s.indices]
+
+    ms = median(timing.cuda_time_ms(card, runs=5))
+    log(f"13d native.host_sort_pairs of {HOST_SORT_ROWS:,} uniform (u64,u64) rows: {hs:.3f} s "
+        f"on {nhost.num_threads()} host threads, equal to numpy's stable argsort; the card's "
+        f"stable torch.sort + payload gather of the same rows: {ms:.3f} ms")
+
+
+def _oracle_query(t_keys, t_amounts, a_keys, a_tier, thr):
+    keep = t_amounts > thr
+    tk, ta = t_keys[keep], t_amounts[keep]
+    mask = np.isin(tk, a_keys[a_tier == 1])
+    tk, ta = tk[mask], ta[mask]
+    ref_keys, inv = np.unique(tk, return_inverse=True)
+    return ref_keys, np.bincount(inv, weights=ta).astype(np.int64) & 0xFFFFFFFF
+
+
+def _host(x, num):
+    return (_bits(x).to(torch.int64) & 0xFFFFFFFF if x.dtype == torch.uint32
+            else x.to(torch.int64))[:num].cpu().numpy()
+
+
+def _example(name, call, k1, k2):
+    """One example's run on the card: ``call()``'s result, its K1 and K2
+    launches recorded (name -> call for k1_against_plain, name -> (call,
+    launches) for k2_at_shapes)."""
+    b1, b2 = extract.LAUNCHES, expand.LAUNCHES
+    out = call()
+    torch.cuda.synchronize()
+    if extract.LAUNCHES > b1:
+        k1[name] = call
+    if expand.LAUNCHES > b2:
+        k2[name] = (call, expand.LAUNCHES - b2)
+    log(f"13e {name}: K1 launches {extract.LAUNCHES - b1}, K2 launches {expand.LAUNCHES - b2}")
+    return out
+
+
+def examples_path():
+    """13e: the three examples at their default sizes on the card, each held
+    to the numpy oracle of tests/test_examples.py, then each example's own
+    main. Returns (K1 workloads, K2 workloads) as _example records them."""
+    k1, k2 = {}, {}
+    rng = np.random.default_rng(SEED)
+    dev = lambda a: torch.from_numpy(a.view(np.int32)).to(DEV).view(torch.uint32)  # noqa: E731
+    n, n_acc = 1 << 20, 1 << 12
+    t_keys = rng.integers(0, n_acc, n).astype(np.uint32)
+    t_amounts = rng.integers(0, 1 << 16, n).astype(np.uint32)
+    a_keys = np.arange(n_acc, dtype=np.uint32)
+    a_tier = rng.integers(0, 3, n_acc).astype(np.uint32)
+    q_args = (dev(t_keys), dev(t_amounts), dev(a_keys), dev(a_tier), 1 << 14)
+    uk, sums, ng, ovf = _example("ex-query_demo", lambda: ex_query.build_query(
+        n_acc, join_capacity=int(n * 1.1))(*q_args), k1, k2)
+    ref_k, ref_s = _oracle_query(t_keys, t_amounts, a_keys, a_tier, 1 << 14)
+    ng = int(ng)
+    check(not bool(ovf) and ng == ref_k.shape[0] and np.array_equal(_host(uk, ng), ref_k)
+          and np.array_equal(_host(sums, ng) & 0xFFFFFFFF, ref_s),
+          "13e: query_demo differs from its oracle")
+    log(f"13e query_demo: {n:,} rows -> {ng} groups, equal to the numpy oracle")
+
+    n, n_q, n_sym = 100_000, 100_000 // 16, 64
+    sym = rng.integers(0, n_sym, n).astype(np.uint32)
+    qty = rng.integers(1, 500, n).astype(np.uint32)
+    ts = np.sort(rng.integers(0, 1 << 30, n).astype(np.uint32))
+    q_ts = rng.integers(0, 1 << 30, n_q).astype(np.uint32)
+    q_px = rng.integers(90, 110, n_q).astype(np.uint32)
+    t_args = tuple(map(dev, (sym, qty, ts, q_ts, q_px)))
+    s, cnt, notional, num = _example(
+        "ex-table_demo", lambda: ex_table.build_pipeline(min_qty=250)(*t_args), k1, k2)
+    num = int(num)
+    keep = qty > 250
+    ks, kq, kt = sym[keep], qty[keep], ts[keep]
+    order = np.argsort(q_ts, kind="stable")
+    hi = np.searchsorted(q_ts[order], kt, side="right")
+    px = np.where(hi > 0, q_px[order][np.clip(hi - 1, 0, None)], 0).astype(np.uint32)
+    notl = (kq * px).astype(np.uint32)
+    ref = sorted((int(u), int((ks == u).sum()), int(np.sum(notl[ks == u], dtype=np.uint32)))
+                 for u in np.unique(ks))
+    got = sorted(zip(_host(s, num).tolist(), _host(cnt, num).tolist(),
+                     _host(notional, num).tolist()))
+    check(num == len(ref) and got == ref and list(_host(notional, num)) == sorted(
+        (r[2] for r in ref), reverse=True), "13e: table_demo differs from its oracle")
+    log(f"13e table_demo: {n:,} trades x {n_q:,} quotes -> {num} symbols, equal to the oracle")
+
+    n, n_sym, min_qty = 1 << 18, 64, 100
+    sym = rng.integers(0, n_sym, n).astype(np.uint32)
+    qty = rng.integers(1, 1000, n).astype(np.uint32)
+    ts = rng.integers(0, 1 << 30, n).astype(np.uint32)
+    mesh = rdist.data_mesh(D_SHARDS, device=DEV)
+    d_args = (dev(sym), dev(qty), dev(ts))
+    s, cnt, vol, peak, num = _example("ex-dist_table_demo", lambda: ex_dist.build_pipeline(
+        mesh, min_qty, n_sym * 2)(*d_args), k1, k2)
+    num = int(num) if num is not None else s.shape[0]
+    keep = qty > min_qty
+    ks, kq, kt = sym[keep], qty[keep], ts[keep]
+    refs = []
+    for u in np.unique(ks):
+        g = kq[ks == u]
+        o = np.argsort(kt[ks == u], kind="stable")
+        refs.append((int(u), len(g), int(g.sum()), int(np.max(np.cumsum(g[o])))))
+    got = sorted(zip(_host(s, num).tolist(), _host(cnt, num).tolist(),
+                     _host(vol, num).tolist(), _host(peak, num).tolist()))
+    check(num == len(refs) and got == sorted(refs) and list(_host(vol, num)) == sorted(
+        (r[2] for r in refs), reverse=True), "13e: dist_table_demo differs from its oracle")
+    log(f"13e dist_table_demo: {n:,} trades on {mesh.size} slots -> {num} symbols, equal to "
+        f"the oracle")
+    for ex in (ex_query, ex_table, ex_dist):
+        ex.main(["--device", DEV])
+    return k1, k2
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)")
@@ -2877,15 +3620,40 @@ def main():
     del dt_work
     k2_dt_rows, k2_err6 = k2_at_shapes(dt_k2)
     del dt_k2
+
+    # the demo CLI, datasets, suites, an SF1 CSV load and the examples (phase 13)
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    k1_demo, k1_demo_rows, k1_err3 = demo_sweep(gen)
+    torch.cuda.empty_cache()
+    demo_datasets()
+    k2_demo, demo_k2 = demo_suites()
+    k2_demo_rows, k2_err7 = k2_at_shapes(demo_k2)
+    del demo_k2
+    torch.cuda.empty_cache()
+    sf1_load()
+    extract.LAUNCHES = expand.LAUNCHES = 0
+    ex_k1, ex_k2 = examples_path()
+    k1_examples, k2_examples = extract.LAUNCHES, expand.LAUNCHES
+    check(k2_examples > 0, "the examples never launched the expand kernel")
+    log(f"examples path: extract kernel calls {k1_examples}, expand kernel calls {k2_examples}")
+    k1_ex_rows, k1_err4 = {}, 0
+    for name, call in ex_k1.items():
+        k1_ex_rows[name], e = k1_against_plain(record_k1(call), name)
+        k1_err4 = max(k1_err4, e)
+    k2_ex_rows, k2_err8 = k2_at_shapes(ex_k2)
+    del ex_k1, ex_k2
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/extract.cu",
         "replaces": "radix_sort_tpu/ops/extract.py:310",
-        "launches": k1_launches + k1_orderby,
-        "launches_by_path": {"sort": k1_launches, "order_by": k1_orderby},
-        "max_abs_err": max(err, err2, k1_ob_err),
+        "launches": k1_launches + k1_orderby + k1_demo + k1_examples,
+        "launches_by_path": {"sort": k1_launches, "order_by": k1_orderby, "demo": k1_demo,
+                             "examples": k1_examples},
+        "max_abs_err": max(err, err2, k1_ob_err, k1_err3, k1_err4),
         "ms": k1_ms,
         "plain_ms": k1_plain,
         "bound_ms": k1_bound,
@@ -2893,15 +3661,19 @@ def main():
         "library_ms": None,  # no single PyTorch call computes a stable multi-region run scatter
         "shape": f"the calls of one {MAIN_ROWS[0]:,}-row (u64,u64) sort, summed",
         "order_by": k1_ob,  # the calls of one O1 / O2 call, summed, same keys
+        "demo": k1_demo_rows,  # the calls of one demo (u32,u32) sort, summed, same keys
+        "examples": k1_ex_rows,  # the calls of one example's run, summed, same keys
     }, {
         "name": "expand_join_runs",
         "route": "cuda",
         "source": "radix_sort_tpu_torch/csrc/expand.cu",
         "replaces": "radix_sort_tpu/ops/expand.py:330",
-        "launches": k2_launches + k2_table + k2_sql + k2_dist + k2_dt,
+        "launches": k2_launches + k2_table + k2_sql + k2_dist + k2_dt + k2_demo + k2_examples,
         "launches_by_path": {"join": k2_launches, "table": k2_table, "sql": k2_sql,
-                             "dist": k2_dist, "dist_table": k2_dt},
-        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4, k2_err5, k2_err6),
+                             "dist": k2_dist, "dist_table": k2_dt, "demo": k2_demo,
+                             "examples": k2_examples},
+        "max_abs_err": max(k2_err, k2_err2, k2_err3, k2_err4, k2_err5, k2_err6, k2_err7,
+                           k2_err8),
         "ms": r_row["ms"],
         "plain_ms": r_row["plain_ms"],
         "bound_ms": r_row["bound_ms"],
@@ -2909,7 +3681,8 @@ def main():
         "library_ms": r_row["library_ms"],
         "shape": "R: the repeat call, one i32 column (torch.repeat_interleave computes "
                  "the same); every shape in calls",
-        "calls": k2_rows + k2_table_rows + k2_sql_rows + k2_dist_rows + k2_dt_rows,
+        "calls": (k2_rows + k2_table_rows + k2_sql_rows + k2_dist_rows + k2_dt_rows
+                  + k2_demo_rows + k2_ex_rows),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

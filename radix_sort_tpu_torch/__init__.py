@@ -23,7 +23,14 @@ quantiles, filter, UNNEST and set operators); the kernels are built at
 first use, and its second slice: the distributed windows and ASOF joins
 and ``DistTable``, the sharded relation facade (``parallel.dist_table``,
 exported lazily). ``Table`` puts its columns on the GPU unless it is given
-``device="cpu"``. ``Table.from_csv`` is not ported yet (ROADMAP.md).
+``device="cpu"``. Host modules: ``native`` (the C++ host radix sort
+``host_sort`` / ``host_sort_pairs`` and the C++ CSV loader behind
+``Table.from_csv``, built with g++ at first use), ``utils.io`` (raw
+dataset files, CSV reading), ``utils.distributions`` (the reference's
+input distributions, made on the device), ``utils.profiling``
+(``PhaseTimer``, ``speed_of_light_s``), the demo CLI
+(``python -m radix_sort_tpu_torch.demo``) and three examples
+(``radix_sort_tpu_torch.examples``).
 """
 
 from radix_sort_tpu_torch import config, dates, keys, nulls, strings

@@ -84,7 +84,9 @@ def _payload_restore(vout, dtype, size):
 def sort_pairs_words(words: torch.Tensor, values: torch.Tensor):
     if words.shape[0] < _min_pipeline_n():
         srt = torch.sort(words, stable=True)
-        return srt.values, values[srt.indices]
+        # unsigned payloads gather as their signed view (CUDA indexes no UInt32)
+        size = values.element_size()
+        return srt.values, values.view(_SIGNED_OF_SIZE[size])[srt.indices].view(values.dtype)
     ops, nk = _word_ops(words)
     vops = _payload_ops(values)
     out = sample_sort.sample_sort_words(ops + vops, nk)

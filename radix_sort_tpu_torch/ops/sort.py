@@ -144,7 +144,7 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor, *,
         return K.decode(_dir(words, descending), keys.dtype), out_vals
     if impl == "comparator":
         srt = torch.sort(_dir(K.encode(keys), descending), stable=True)
-        return K.decode(_dir(srt.values, descending), keys.dtype), values[srt.indices]
+        return K.decode(_dir(srt.values, descending), keys.dtype), _take(values, srt.indices)
     perm = argsort(keys, descending=descending, implementation=impl)
     return _take(keys, perm), _take(values, perm)
 

@@ -11,10 +11,12 @@ operators (join, set ops, concat) first unify the two dictionaries on the
 host and remap codes with one small device gather, so the shared code
 space stays order-preserving.
 
-Vocabularies are built with numpy (``np.unique``, ``np.union1d``). The JAX
-package interns and merges with its native C++ loader when one builds; the
-vocabularies and codes are the same, and the loader is not ported yet
-(ROADMAP.md).
+Vocabularies are interned by ``np.unique`` and merged by the native C++
+loader's two-pointer merge of sorted vocabularies (``native/csvio.py``) when
+it builds, by ``np.union1d`` without a compiler; the codes and vocabularies
+are the same either way. (The loader's native intern, ``csvio.intern_rows``,
+lost to ``np.unique`` on 6M mostly distinct strings on an H100 machine's
+host CPU, chip_smoke.py phase 13d, so ``encode`` does not use it.)
 
 Conventions:
   - every vocabulary contains ``""`` at index 0 ("" is the lexicographic
@@ -93,7 +95,22 @@ def decode(codes, vocab) -> np.ndarray:
 def unify(vocab_a: np.ndarray, vocab_b: np.ndarray):
     """Merge two vocabularies into one sorted union and return
     ``(union, remap_a, remap_b)`` where ``remap_x[old_code] = new_code``
-    (uint32 numpy arrays, applied on the device as one small gather)."""
+    (uint32 numpy arrays, applied on the device as one small gather).
+
+    Vocabularies are sorted by invariant, so the union is a native linear
+    two-pointer merge (csv_loader.cpp); np.union1d's re-sort of both runs
+    only without a compiler."""
+    from radix_sort_tpu_torch.native import csvio
+
+    native = csvio.merge_sorted(vocab_a, vocab_b)
+    if native is not None:
+        remap_a, remap_b, src, idx, n_u = native
+        dt = vocab_a.dtype if vocab_a.dtype.itemsize >= vocab_b.dtype.itemsize else vocab_b.dtype
+        union = np.empty(n_u, dt)
+        ma = src == 0
+        union[ma] = vocab_a[idx[ma]]
+        union[~ma] = vocab_b[idx[~ma]]
+        return union, remap_a, remap_b
     union = np.union1d(vocab_a, vocab_b)  # sorted; "" stays at index 0
     remap_a = np.searchsorted(union, vocab_a).astype(np.uint32)
     remap_b = np.searchsorted(union, vocab_b).astype(np.uint32)

@@ -36,8 +36,8 @@ microseconds (``dates.py``). Nullable columns carry hidden bool masks
 Column expressions (``expr.py``) are accepted by ``with_columns``,
 ``filter`` and the ``where=`` of ``aggregate`` / ``aggregate_sets``;
 ``Table.lazy()`` starts a deferred pipeline (``plan.py``), which is also what
-``sql()`` builds. Not ported yet (ROADMAP.md): ``Table.from_csv`` (it needs
-``native/`` and ``utils/io.py``).
+``sql()`` builds. ``Table.from_csv`` reads a CSV file through the native
+loader (``native/csvio.py``, ``utils/io.py``).
 """
 
 from __future__ import annotations
@@ -180,6 +180,27 @@ class Table:
 
     def _new(self, cols, count, dicts):
         return Table(cols, count, dictionaries=dicts, device=self._dev)
+
+    @classmethod
+    def from_csv(cls, path: str, *, delimiter: str = ",", dtypes=None,
+                 device=None) -> "Table":
+        """Read a headered CSV into a Table on ``device`` (the GPU unless
+        ``device="cpu"``). With the native C++ loader (native/csv_loader.cpp)
+        string columns arrive ALREADY dictionary-encoded (codes + sorted
+        vocabulary), ISO dates as dates and empty fields as SQL NULL masks:
+        no per-row Python string work. With ``dtypes=``, or without a
+        compiler, this takes the numpy path (utils/io.read_csv), which
+        dictionary-encodes in the constructor."""
+        from radix_sort_tpu_torch.utils.io import read_csv, read_csv_encoded
+
+        if not dtypes:
+            try:
+                cols, dicts, masks = read_csv_encoded(path, delimiter=delimiter)
+            except RuntimeError:
+                pass
+            else:
+                return cls(cols, dictionaries=dicts, null_masks=masks or None, device=device)
+        return cls(read_csv(path, delimiter=delimiter, dtypes=dtypes), device=device)
 
     # ---- introspection -------------------------------------------------
 

@@ -649,3 +649,31 @@ def test_dist_table_sql_and_asof_on_card(cuda):
                            matched_col="m", **kw)
         b = cpu.join_asof(DistTable(rt, cpu.mesh), "k", matched_col="m", **kw)
         _same_np(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["comparator", "pallas", "xla_argsort", "oracle"])
+@pytest.mark.parametrize("n", [1000, 1 << 19])
+def test_sort_pairs_unsigned_payload_on_the_card(cuda, impl, n):
+    """(u32, u32) rows, as the demo sorts them: unsigned payloads gather
+    through their signed view on the card, on every engine's path."""
+    g = torch.Generator().manual_seed(n)
+    k = torch.randint(0, 50, (n,), generator=g, dtype=torch.int32).view(torch.uint32)
+    v = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+    ck, cv = rst.sort_pairs(k.cuda(), v.cuda(), implementation=impl)
+    hk, hv = rst.sort_pairs(k, v, implementation=impl)
+    assert ck.dtype == cv.dtype == torch.uint32
+    assert torch.equal(ck.cpu().view(torch.int32), hk.view(torch.int32))
+    assert torch.equal(cv.cpu().view(torch.int32), hv.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_demo_sweep_and_suites_on_the_card(cuda, capsys):
+    from radix_sort_tpu_torch import demo
+
+    demo.main(["--sizes", "0.01", "--dtypes", "u32", "u64", "--runs", "1",
+               "--engines", "comparator", "pallas", "--dist", "zipf"])
+    demo.main(["--suite", "queries", "--ops-n", "65536", "--runs", "1"])
+    demo.main(["--suite", "ops", "--ops-n", "65536", "--groups", "1024", "--runs", "1"])
+    out = capsys.readouterr().out
+    assert out.count("Sorted 0.01GB") == 4 and "hash_join inner" in out and "Q3 revenue" in out
