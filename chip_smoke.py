@@ -6,8 +6,8 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds both hand-written kernels from ``csrc/`` (one nvcc each, started
-together) and drives the port's two paths:
+It builds the three hand-written kernels from ``csrc/`` (one nvcc each,
+started together) and drives the port's paths:
 
   * the sort: the bucket-extraction kernel (K1, ``csrc/extract.cu``) held
     bit-exact against its plain PyTorch version, also into outputs poisoned
@@ -59,9 +59,16 @@ together) and drives the port's two paths:
     Q13 and S4 Q18 as SQL text through ``rst.sql(text, tables).collect()``
     over phase 9's tables, each with its optimized plan printed, checked
     against its torch oracle, its unoptimized plan checked against the
-    optimized one, timed as phase 9 times its workloads, and K2 held
+    optimized one, timed as phase 9 times its workloads, K2 held
     bit-exact against its plain version and timed at every expansion the
-    SQL plans make;
+    SQL plans make, and the run-ends kernel (``csrc/run_ends.cu``, the
+    right rank of every merge-rank union) held bit-exact against its plain
+    version and timed beside it, its bound and the zero fill and atomic
+    ``scatter_reduce_`` max it replaced, at every union of S2-S4. Every
+    other path that joins (phases 5, 9, 11, 12 and 13) counts its run-ends
+    launches as it counts K2's, holds the kernel bit-exact against its plain
+    version at every union one run of each of its workloads makes, and
+    times it at the path's largest union;
   * the distributed layer (phase 11) on a mesh of 4 slots on the card
     (``parallel/``: the slots share the process, the exchange is
     device-local copies): D1 ``distributed_sort_pairs`` of 250M uniform
@@ -125,9 +132,9 @@ together) and drives the port's two paths:
     (``implementation="xla_argsort"`` / ``"xla_rank"``) on 2**20 uint32 and
     uint64 keys against a stable ``torch.sort``.
 
-Each path runs with its kernel's launch count set to 0 just before and
-read just after, and the run fails unless the path went through the
-kernel. Every check raises on failure (non-zero exit, no result line).
+Each path runs with its kernels' launch counts set to 0 just before and
+read just after (or read around each checked call), and the run fails
+unless the path went through the kernel. Every check raises on failure (non-zero exit, no result line).
 Without a CUDA device it exits non-zero at once. The last line of standard
 output is one JSON object: ``{"ok": true, "device": {...}}``; the line
 before it is the per-kernel JSON record.
@@ -158,7 +165,7 @@ from radix_sort_tpu_torch.examples import table_demo as ex_table
 from radix_sort_tpu_torch.native import csvio
 from radix_sort_tpu_torch.native import host as nhost
 from radix_sort_tpu_torch.table import Table
-from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, sample_sort
+from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, run_ends, sample_sort
 from radix_sort_tpu_torch.parallel import collectives as rcoll
 from radix_sort_tpu_torch.parallel import dist_asof as rda
 from radix_sort_tpu_torch.parallel import dist_query as rdq
@@ -1121,6 +1128,85 @@ def k2_at_shapes(workloads):
     return rows, err
 
 
+def record_run_ends(call):
+    """The arguments of every run-ends call one run of ``call`` makes."""
+    calls = []
+    real = run_ends.run_end_values
+
+    def recorder(run_start, run_id, values):
+        calls.append((run_start, run_id, values))
+        return real(run_start, run_id, values)
+
+    run_ends.run_end_values = recorder
+    try:
+        call()
+    finally:
+        run_ends.run_end_values = real
+    return calls
+
+
+def _time_union(path, shape, run_start, run_id, values):
+    """The run-ends kernel at one union, timed beside its plain version, its
+    bound and the two PyTorch calls it replaced in merge_rank_pair (a zero
+    fill and an atomic ``scatter_reduce_`` amax)."""
+    n = run_start.shape[0]
+    runs = int(run_id[-1]) + 1
+    longest = int(torch.bincount(run_id).max())
+
+    def library():
+        run_max = torch.zeros((n,), dtype=torch.int32, device=values.device)
+        return run_max.scatter_reduce_(0, run_id, values, "amax", include_self=False)
+
+    mk, mp, ml = interleaved_ms(
+        lambda: run_ends.run_end_values(run_start, run_id, values),
+        lambda: run_ends.run_end_values_plain(run_start, run_id, values), library)
+    # the least bytes: each flag read once, run_id and values read at each
+    # run end, one int32 written a run
+    nbytes = n + 16 * runs
+    bound = nbytes / HBM_BYTES_PER_MS
+    log(f"run-ends at {shape} ({path} path): {n:,} rows, {runs:,} runs, longest {longest:,} "
+        f"({100 * longest / n:.1f}%): kernel {mk:.3f} ms ({nbytes / mk / 1e6:.0f} GB/s), "
+        f"plain {mp:.3f} ms, bound {bound:.3f} ms ({100 * bound / mk:.0f}% of it), "
+        f"zeros + scatter_reduce_ amax {ml:.3f} ms")
+    return {"path": path, "shape": shape, "rows": n, "runs": runs, "longest_run": longest,
+            "ms": mk, "plain_ms": mp, "bound_ms": bound, "library_ms": ml}
+
+
+def run_ends_at_shapes(path, workloads, every=False):
+    """Check the run-ends kernel bit-exact against its plain version, each
+    run's entry, on the exact arguments of every union that one run of each
+    of a path's workloads (name -> zero-argument call) makes, and time it
+    (``_time_union``) at every union with ``every``, else at the path's
+    largest. A workload with several unions names them name.1, name.2, ...
+    Returns the timed rows."""
+    rows, largest, checked = [], None, 0
+    for name, call in workloads.items():
+        calls = record_run_ends(call)
+        n_calls = len(calls)
+        for j in range(n_calls):
+            # each union's arguments are let go once they are checked (and
+            # timed), but for the path's largest
+            args = calls.pop(0)
+            shape = name if n_calls == 1 else f"{name}.{j + 1}"
+            runs = int(args[1][-1]) + 1
+            got = run_ends.run_end_values(*args)
+            ref = run_ends.run_end_values_plain(*args)
+            check(torch.equal(got[:runs], ref[:runs]),
+                  f"the run-ends kernel differs from plain at the {shape} shapes")
+            checked += 1
+            del got, ref
+            if every:
+                rows.append(_time_union(path, shape, *args))
+            elif largest is None or args[0].shape[0] > largest[1][0].shape[0]:
+                largest = (shape, args)
+            del args
+    if largest is not None:
+        shape, args = largest
+        rows.append(_time_union(path, shape, *args))
+    log(f"{path} path: the run-ends kernel bit-exact against plain at {checked} unions")
+    return rows
+
+
 # ---------------------------------------------------------------- phase 8
 
 
@@ -2009,8 +2095,9 @@ def sql_path(gen):
     """S1-S4: TPC-H Q1, Q3, Q13 and Q18 as SQL text through ``rst.sql(text,
     tables).collect()`` over the phase-9 Tables at SF10, each checked against
     its torch oracle, its unoptimized plan against its optimized one, with
-    its K2 launches counted. Returns the workloads (label -> (call, rows
-    in)) for timing and those with expansions (name -> (call, K2 calls))."""
+    its K2 and run-ends launches counted. Returns the workloads (label ->
+    (call, rows in)) for timing and those with expansions (name -> (call, K2
+    calls))."""
     raw = tpch_sf10(gen)
     li, orders, customer = facade_tables(raw, gen)
     raw["o_special"] = orders["o_special"]
@@ -2031,12 +2118,12 @@ def sql_path(gen):
         log(f"{name} TPC-H {q}: {text}")
         log(f"{name} optimized plan (host planning, parse and optimize: median "
             f"{median(plan_ms):.3f} ms of 5):\n" + plan.explain())
-        before = expand.LAUNCHES
+        before, re_before = expand.LAUNCHES, run_ends.LAUNCHES
         got, ovf = plan.collect(return_overflow=True)
         sync_table(got)
-        calls = expand.LAUNCHES - before
-        log(f"{name}: matches the torch oracle, K2 launches {calls}; "
-            f"{_s_check(name, raw, li, orders, customer, got, ovf)}")
+        calls, re_calls = expand.LAUNCHES - before, run_ends.LAUNCHES - re_before
+        log(f"{name}: matches the torch oracle, K2 launches {calls}, run-ends launches "
+            f"{re_calls}; {_s_check(name, raw, li, orders, customer, got, ovf)}")
         unopt, uovf = plan.collect(optimize_plan=False, return_overflow=True)
         _s_check(name, raw, li, orders, customer, unopt, uovf)
         same_result(name, got, unopt)
@@ -2227,7 +2314,7 @@ def d_join(t, gen, mesh):
     """D3: J1 and J2 as distributed joins at SF10 (K2 once per slot), held
     against the single-device ``rst.hash_join`` as multisets of rows; a
     forced skew fallback at 2**20 rows. Returns (workloads, K2 shapes, K2
-    launches of the distributed calls)."""
+    launches and run-ends launches of the distributed calls)."""
     lk, lv = t["o_orderkey"], t["o_custkey32"]
     rk = _pad_rows(t["l_orderkey"], 0xFFFFFFFF)  # no order has that key
     rv = _pad_rows(t["l_extendedprice"], 0.0)
@@ -2258,13 +2345,13 @@ def d_join(t, gen, mesh):
                                   capacity=D_SHARDS * D3_SKEW_CAPACITY),
             None, 2 * D3_SKEW_ROWS),
     }
-    launches = 0
+    launches = re_launches = 0
     for label, (call, single, k2, _) in work.items():
-        before = expand.LAUNCHES
+        before, re_before = expand.LAUNCHES, run_ends.LAUNCHES
         jk, jlv, jrv, counts, ovf = call()
         torch.cuda.synchronize()
-        calls = expand.LAUNCHES - before
-        launches += calls
+        calls, re_calls = expand.LAUNCHES - before, run_ends.LAUNCHES - re_before
+        launches, re_launches = launches + calls, re_launches + re_calls
         if k2 is not None:
             check(calls == k2, f"{label}: {calls} K2 launches, expected {k2}")
         wk, wlv, wrv, wc, wo = single()
@@ -2275,12 +2362,12 @@ def d_join(t, gen, mesh):
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"{label}: rows differ from the single-device join")
         log(f"{label.split()[0]}: {wc:,} rows, the single-device join's multiset; per-slot "
-            f"counts {counts.tolist()}; K2 launches {calls}")
+            f"counts {counts.tolist()}; K2 launches {calls}, run-ends launches {re_calls}")
         del jk, jlv, jrv, got, want, wk, wlv, wrv
     return ({label: (call, single, rows) for label, (call, single, _, rows) in work.items()},
             {"D3-J1": (work["D3-J1 ORDERS inner join LINEITEM, 4 slots"][0], D_SHARDS),
              "D3-J2": (work["D3-J2 CUSTOMER left join ORDERS, 4 slots"][0], D_SHARDS)},
-            launches)
+            launches, re_launches)
 
 
 def d_aggregate(t, mesh):
@@ -2501,7 +2588,8 @@ def time_dist(work, must_exchange=MUST_EXCHANGE):
 def distributed_path(gen):
     """Phase 11: D1-D5 on a 4-slot mesh on cuda:0, each checked against its
     oracle, then timed. Returns (the K2 shapes it recorded, K2 launches of
-    the checked distributed calls)."""
+    the checked distributed calls, the joins (name -> call), whose unions
+    are the only ones of the path, and their run-ends launches)."""
     mesh = rdist.data_mesh(D_SHARDS, device=DEV)
     mesh8 = rdist.data_mesh(2 * D_SHARDS, device=DEV)
     log(f"mesh: {mesh}")
@@ -2512,11 +2600,12 @@ def distributed_path(gen):
     t = tpch_sf10(gen)
     log(f"TPC-H SF10 for the distributed path: {t['o_orderkey'].shape[0]:,} orders, "
         f"{t['l_orderkey'].shape[0]:,} lineitems, {t['c_custkey'].shape[0]:,} customers")
-    join_work, k2_join, join_launches = d_join(t, gen, mesh)
+    join_work, k2_join, join_launches, re_launches = d_join(t, gen, mesh)
     agg_work = d_aggregate(t, mesh)
     op_work, k2_ops, op_launches = d_operators(t, gen, mesh)
     time_dist({**join_work, **agg_work, **op_work})
-    return {**k2_join, **k2_ops}, join_launches + op_launches
+    joins = {label.split()[0]: call for label, (call, *_) in join_work.items()}
+    return {**k2_join, **k2_ops}, join_launches + op_launches, joins, re_launches
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2686,9 +2775,10 @@ def _np_same(label, a, b, floats=(), multiset=False):
 def dist_table_path(gen):
     """Phase 12: DT1-DT5 and DS1-DS4 over DistTables on the 4-slot mesh at
     SF10, each checked against its torch oracle where phase 9 / 10 has one
-    and against the single-device Table / SQL result, K2 launches and
-    replicated fallbacks read around each call. Returns (workloads for
-    time_dist, K2 expansions for k2_at_shapes, K2 launches)."""
+    and against the single-device Table / SQL result, K2 and run-ends
+    launches and replicated fallbacks read around each call. Returns
+    (workloads for time_dist, K2 expansions for k2_at_shapes, K2 launches,
+    run-ends launches)."""
     mesh = rdist.data_mesh(D_SHARDS, device=DEV)
     raw = tpch_sf10(gen)
     li, orders, customer = facade_tables(raw, gen)
@@ -2762,15 +2852,15 @@ def dist_table_path(gen):
             dcall, scall, lambda g, name=name: _s_check(name, raw, li, orders, customer, *g),
             None, S_FLOATS[name])
 
-    launches, k2 = 0, {}
+    launches, re_launches, k2 = 0, 0, {}
     for label, (call, single, verify, k2_calls, floats) in work.items():
         name = label.split()[0]
-        before = expand.LAUNCHES
+        before, re_before = expand.LAUNCHES, run_ends.LAUNCHES
         with Fallbacks() as fb:
             got = call()
             torch.cuda.synchronize()
-        calls = expand.LAUNCHES - before
-        launches += calls
+        calls, re_calls = expand.LAUNCHES - before, run_ends.LAUNCHES - re_before
+        launches, re_launches = launches + calls, re_launches + re_calls
         check(not fb.taken, f"{name}: unforced replicated fallback {fb.taken}")
         if k2_calls is not None:
             check(calls == k2_calls, f"{name}: {calls} K2 launches, expected {k2_calls}")
@@ -2784,25 +2874,30 @@ def dist_table_path(gen):
             check(not bool(got[1]) if not isinstance(got[1], tuple)
                   else not any(bool(o) for o in got[1]), f"{name}: overflow")
         _np_same(name, g, w, floats=floats, multiset=name in ("DT5b",))
-        log(f"{name}: matches the single-device result; K2 launches {calls}; replicated "
-            f"fallbacks none; {note}")
+        log(f"{name}: matches the single-device result; K2 launches {calls}, run-ends "
+            f"launches {re_calls}; replicated fallbacks none; {note}")
         del got, want, g, w
     plan = rst.sql(DS_LOOKUP, d_tables, max_groups=1 << 20, capacity_per_shard=DS_CAPACITY)
     text = plan.explain()
     check("join[lookup on o_custkey]" in text, "DS-lookup: no broadcast lookup join in the plan")
     log("DS-lookup (the eager-aggregation rewrite over DistTable sources): " + DS_LOOKUP
         + "\n" + text)
-    got, want = plan.collect(), rst.sql(DS_LOOKUP, s_tables).collect()
+    re_before = run_ends.LAUNCHES
+    got = plan.collect()
+    torch.cuda.synchronize()
+    re_calls = run_ends.LAUNCHES - re_before
+    re_launches += re_calls
+    want = rst.sql(DS_LOOKUP, s_tables).collect()
     _np_same("DS-lookup", got, want, floats=("spent",))
     k = int(want.count)
     err = (got["spent"][:k] - want["spent"][:k]).abs()
     n = want["n"][:k].to(torch.float64)  # sum |x| <= n * max price: the parity bound
     check(bool((err <= 2 * n * U64 * got["spent"][:k].abs()).all()),
           "DS-lookup spent beyond its summation bound")
-    log("DS-lookup: matches the single-device SQL result")
+    log(f"DS-lookup: matches the single-device SQL result; run-ends launches {re_calls}")
     timed = {label: (call, single, rows_in(label, li, orders, customer))
              for label, (call, single, *_) in work.items()}
-    return timed, k2, launches
+    return timed, k2, launches, re_launches
 
 
 def rows_in(label, li, orders, customer):
@@ -3076,37 +3171,41 @@ def demo_suites():
     with K2's launches counted around them; every op and query once more at
     DEMO_SMALL rows on the card and on the CPU (the same builder), held
     equal (floats by _demo_float_bounds); the K2 expansions of each entry at
-    the demo's size for k2_at_shapes. Returns (K2 launches, K2 workloads)."""
-    expand.LAUNCHES = 0
+    the demo's size for k2_at_shapes, and the entries with merge-rank unions
+    for run_ends_at_shapes. Returns (K2 launches, K2 workloads, run-ends
+    launches, run-ends workloads)."""
+    expand.LAUNCHES = run_ends.LAUNCHES = 0
     t = _demo("--suite", "ops", "--ops-n", str(DEMO_OPS_N), "--groups", str(DEMO_GROUPS),
               "--runs", str(DEMO_RUNS))
     log(f"13c ops suite: {t:.1f} s")
     t = _demo("--suite", "queries", "--ops-n", str(DEMO_OPS_N), "--runs", str(DEMO_RUNS))
     log(f"13c queries suite: {t:.1f} s")
-    launches = expand.LAUNCHES
+    launches, re_launches = expand.LAUNCHES, run_ends.LAUNCHES
     check(launches > 0, "the demo's suites never launched the expand kernel")
-    log(f"13c: expand kernel calls {launches}")
-    k2 = {}
+    check(re_launches > 0, "the demo's suites never launched the run-ends kernel")
+    log(f"13c: expand kernel calls {launches}, run-ends kernel calls {re_launches}")
+    k2, re = {}, {}
     entries = [(f"demo-{k}", functools.partial(demo.build_op, k, groups=DEMO_GROUPS))
                for k in demo.OPS]
     entries += [(f"demo-{k}", functools.partial(demo.build_query, k)) for k in demo.QUERIES]
     for name, build in entries:
         fn, args = build(DEMO_OPS_N, 0, DEV)
-        before = expand.LAUNCHES
+        before, re_before = expand.LAUNCHES, run_ends.LAUNCHES
         fn(*args)
         torch.cuda.synchronize()
-        calls = expand.LAUNCHES - before
+        calls, re_calls = expand.LAUNCHES - before, run_ends.LAUNCHES - re_before
         if calls:
             k2[name] = (lambda fn=fn, args=args: fn(*args), calls)
-        else:
-            del fn, args
+        if re_calls:
+            re[name] = lambda fn=fn, args=args: fn(*args)
+        del fn, args
         fn_c, args_c = build(DEMO_SMALL, 0, DEV)
         fn_h, args_h = build(DEMO_SMALL, 0, "cpu")
         a, b = _as_numpy(fn_c(*args_c)), _as_numpy(fn_h(*args_h))
         share = _same_numpy(name, a, b, _demo_float_bounds(name, a, b))
         log(f"13c {name}: card = CPU at {DEMO_SMALL:,} rows (floats used {share:.2e} of "
-            f"their bound); K2 launches at {DEMO_OPS_N:,} rows: {calls}")
-    return launches, k2
+            f"their bound); K2 launches at {DEMO_OPS_N:,} rows: {calls}, run-ends: {re_calls}")
+    return launches, k2, re_launches, re
 
 
 def _text(rng, n, lo, hi, pool):
@@ -3429,26 +3528,29 @@ def _host(x, num):
             else x.to(torch.int64))[:num].cpu().numpy()
 
 
-def _example(name, call, k1, k2):
-    """One example's run on the card: ``call()``'s result, its K1 and K2
-    launches recorded (name -> call for k1_against_plain, name -> (call,
-    launches) for k2_at_shapes)."""
-    b1, b2 = extract.LAUNCHES, expand.LAUNCHES
+def _example(name, call, k1, k2, re):
+    """One example's run on the card: ``call()``'s result, its K1, K2 and
+    run-ends launches recorded (name -> call for k1_against_plain and
+    run_ends_at_shapes, name -> (call, launches) for k2_at_shapes)."""
+    b1, b2, b3 = extract.LAUNCHES, expand.LAUNCHES, run_ends.LAUNCHES
     out = call()
     torch.cuda.synchronize()
     if extract.LAUNCHES > b1:
         k1[name] = call
     if expand.LAUNCHES > b2:
         k2[name] = (call, expand.LAUNCHES - b2)
-    log(f"13e {name}: K1 launches {extract.LAUNCHES - b1}, K2 launches {expand.LAUNCHES - b2}")
+    if run_ends.LAUNCHES > b3:
+        re[name] = call
+    log(f"13e {name}: K1 launches {extract.LAUNCHES - b1}, K2 launches {expand.LAUNCHES - b2}, "
+        f"run-ends launches {run_ends.LAUNCHES - b3}")
     return out
 
 
 def examples_path():
     """13e: the three examples at their default sizes on the card, each held
     to the numpy oracle of tests/test_examples.py, then each example's own
-    main. Returns (K1 workloads, K2 workloads) as _example records them."""
-    k1, k2 = {}, {}
+    main. Returns (K1, K2 and run-ends workloads) as _example records them."""
+    k1, k2, re = {}, {}, {}
     rng = np.random.default_rng(SEED)
     dev = lambda a: torch.from_numpy(a.view(np.int32)).to(DEV).view(torch.uint32)  # noqa: E731
     n, n_acc = 1 << 20, 1 << 12
@@ -3458,7 +3560,7 @@ def examples_path():
     a_tier = rng.integers(0, 3, n_acc).astype(np.uint32)
     q_args = (dev(t_keys), dev(t_amounts), dev(a_keys), dev(a_tier), 1 << 14)
     uk, sums, ng, ovf = _example("ex-query_demo", lambda: ex_query.build_query(
-        n_acc, join_capacity=int(n * 1.1))(*q_args), k1, k2)
+        n_acc, join_capacity=int(n * 1.1))(*q_args), k1, k2, re)
     ref_k, ref_s = _oracle_query(t_keys, t_amounts, a_keys, a_tier, 1 << 14)
     ng = int(ng)
     check(not bool(ovf) and ng == ref_k.shape[0] and np.array_equal(_host(uk, ng), ref_k)
@@ -3474,7 +3576,7 @@ def examples_path():
     q_px = rng.integers(90, 110, n_q).astype(np.uint32)
     t_args = tuple(map(dev, (sym, qty, ts, q_ts, q_px)))
     s, cnt, notional, num = _example(
-        "ex-table_demo", lambda: ex_table.build_pipeline(min_qty=250)(*t_args), k1, k2)
+        "ex-table_demo", lambda: ex_table.build_pipeline(min_qty=250)(*t_args), k1, k2, re)
     num = int(num)
     keep = qty > 250
     ks, kq, kt = sym[keep], qty[keep], ts[keep]
@@ -3497,7 +3599,7 @@ def examples_path():
     mesh = rdist.data_mesh(D_SHARDS, device=DEV)
     d_args = (dev(sym), dev(qty), dev(ts))
     s, cnt, vol, peak, num = _example("ex-dist_table_demo", lambda: ex_dist.build_pipeline(
-        mesh, min_qty, n_sym * 2)(*d_args), k1, k2)
+        mesh, min_qty, n_sym * 2)(*d_args), k1, k2, re)
     num = int(num) if num is not None else s.shape[0]
     keep = qty > min_qty
     ks, kq, kt = sym[keep], qty[keep], ts[keep]
@@ -3514,7 +3616,7 @@ def examples_path():
         f"the oracle")
     for ex in (ex_query, ex_table, ex_dist):
         ex.main(["--device", DEV])
-    return k1, k2
+    return k1, k2, re
 
 
 def main():
@@ -3524,12 +3626,13 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build(["extract", "expand"])  # one nvcc per source, all started together
+    _build.build(["extract", "expand", "run_ends"])  # one nvcc per source, all together
     extract._kernel()
     expand._kernel()
+    run_ends._kernel()
     log(f"kernel builds + load: {time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{k} {v:.2f} s" for k, v in _build.BUILD_SECONDS.items()) + ")")
-    for name in ("extract", "expand"):
+    for name in ("extract", "expand", "run_ends"):
         for line in _build.LOG.get(name, "").splitlines():
             if "Used" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -3548,15 +3651,18 @@ def main():
 
     k2_err = check_expand_kernel(rng, gen)
 
-    expand.LAUNCHES = 0
+    expand.LAUNCHES = run_ends.LAUNCHES = 0
     work = join_path(gen)
-    k2_launches = expand.LAUNCHES
+    k2_launches, re_join = expand.LAUNCHES, run_ends.LAUNCHES
     check(k2_launches > 0, "the join path never launched the expand kernel")
-    log(f"join path: expand kernel calls {k2_launches}")
+    check(re_join > 0, "the join path never launched the run-ends kernel")
+    log(f"join path: expand kernel calls {k2_launches}, run-ends kernel calls {re_join}")
 
     time_join_path(work)
     k2_rows, k2_err2 = k2_at_shapes({label.split()[0]: (call, 1)
                                      for label, (call, *_) in work.items()})
+    re_join_rows = run_ends_at_shapes("join", {label.split()[0]: call
+                                               for label, (call, *_) in work.items()})
     del work
     profile_wrappers(gen)
 
@@ -3582,41 +3688,53 @@ def main():
     del ob_work, t
 
     # the relational facade at TPC-H SF10 (phase 9)
-    expand.LAUNCHES = 0
+    expand.LAUNCHES = run_ends.LAUNCHES = 0
     table_work, table_k2 = table_path(gen)
-    k2_table = expand.LAUNCHES
+    k2_table, re_table = expand.LAUNCHES, run_ends.LAUNCHES
     check(k2_table > 0, "the Table path never launched the expand kernel")
-    log(f"Table path: expand kernel calls {k2_table}")
+    check(re_table > 0, "the Table path never launched the run-ends kernel")
+    log(f"Table path: expand kernel calls {k2_table}, run-ends kernel calls {re_table}")
     time_workloads(table_work)
     k2_table_rows, k2_err3 = k2_at_shapes(table_k2)
+    re_table_rows = run_ends_at_shapes("table", {label.split()[0]: call
+                                                 for label, (call, _) in table_work.items()})
     del table_work, table_k2
 
     # the SQL path at TPC-H SF10 (phase 10)
-    expand.LAUNCHES = 0
+    expand.LAUNCHES = run_ends.LAUNCHES = 0
     sql_work, sql_k2 = sql_path(gen)
-    k2_sql = expand.LAUNCHES
+    k2_sql, re_sql = expand.LAUNCHES, run_ends.LAUNCHES
     check(k2_sql > 0, "the SQL path never launched the expand kernel")
-    log(f"SQL path: expand kernel calls {k2_sql}")
+    check(re_sql > 0, "the SQL path never launched the run-ends kernel")
+    log(f"SQL path: expand kernel calls {k2_sql}, run-ends kernel calls {re_sql}")
     time_workloads(sql_work)
     k2_sql_rows, k2_err4 = k2_at_shapes(sql_k2)
+    re_sql_rows = run_ends_at_shapes("sql", {label.split()[0]: call
+                                             for label, (call, _) in sql_work.items()},
+                                     every=True)
     del sql_work, sql_k2
 
     # the distributed layer on a 4-slot mesh on one card (phase 11)
     torch.cuda.empty_cache()
     expand.LAUNCHES = 0  # each distributed call's launches are read around it
-    dist_k2, k2_dist = distributed_path(gen)
+    dist_k2, k2_dist, dist_joins, re_dist = distributed_path(gen)
     check(k2_dist > 0, "the distributed path never launched the expand kernel")
-    log(f"distributed path: expand kernel calls {k2_dist}")
+    check(re_dist > 0, "the distributed path never launched the run-ends kernel")
+    log(f"distributed path: expand kernel calls {k2_dist}, run-ends kernel calls {re_dist}")
     k2_dist_rows, k2_err5 = k2_at_shapes(dist_k2)
-    del dist_k2
+    re_dist_rows = run_ends_at_shapes("dist", dist_joins)
+    del dist_k2, dist_joins
 
     # DistTable on the 4-slot mesh at TPC-H SF10 (phase 12)
     torch.cuda.empty_cache()
     expand.LAUNCHES = 0  # each DistTable call's launches are read around it
-    dt_work, dt_k2, k2_dt = dist_table_path(gen)
+    dt_work, dt_k2, k2_dt, re_dt = dist_table_path(gen)
     check(k2_dt > 0, "the DistTable path never launched the expand kernel")
-    log(f"DistTable path: expand kernel calls {k2_dt}")
+    check(re_dt > 0, "the DistTable path never launched the run-ends kernel")
+    log(f"DistTable path: expand kernel calls {k2_dt}, run-ends kernel calls {re_dt}")
     time_dist(dt_work, MUST_EXCHANGE_DT)
+    re_dt_rows = run_ends_at_shapes("dist_table", {label.split()[0]: call
+                                                   for label, (call, *_) in dt_work.items()})
     del dt_work
     k2_dt_rows, k2_err6 = k2_at_shapes(dt_k2)
     del dt_k2
@@ -3627,24 +3745,33 @@ def main():
     k1_demo, k1_demo_rows, k1_err3 = demo_sweep(gen)
     torch.cuda.empty_cache()
     demo_datasets()
-    k2_demo, demo_k2 = demo_suites()
+    k2_demo, demo_k2, re_demo, demo_re = demo_suites()
     k2_demo_rows, k2_err7 = k2_at_shapes(demo_k2)
-    del demo_k2
+    re_demo_rows = run_ends_at_shapes("demo", demo_re)
+    del demo_k2, demo_re
     torch.cuda.empty_cache()
     sf1_load()
-    extract.LAUNCHES = expand.LAUNCHES = 0
-    ex_k1, ex_k2 = examples_path()
-    k1_examples, k2_examples = extract.LAUNCHES, expand.LAUNCHES
+    extract.LAUNCHES = expand.LAUNCHES = run_ends.LAUNCHES = 0
+    ex_k1, ex_k2, ex_re = examples_path()
+    k1_examples, k2_examples, re_examples = extract.LAUNCHES, expand.LAUNCHES, run_ends.LAUNCHES
     check(k2_examples > 0, "the examples never launched the expand kernel")
-    log(f"examples path: extract kernel calls {k1_examples}, expand kernel calls {k2_examples}")
+    check(re_examples > 0, "the examples never launched the run-ends kernel")
+    log(f"examples path: extract kernel calls {k1_examples}, expand kernel calls {k2_examples}, "
+        f"run-ends kernel calls {re_examples}")
     k1_ex_rows, k1_err4 = {}, 0
     for name, call in ex_k1.items():
         k1_ex_rows[name], e = k1_against_plain(record_k1(call), name)
         k1_err4 = max(k1_err4, e)
     k2_ex_rows, k2_err8 = k2_at_shapes(ex_k2)
-    del ex_k1, ex_k2
+    re_ex_rows = run_ends_at_shapes("examples", ex_re)
+    del ex_k1, ex_k2, ex_re
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     r_row = next(r for r in k2_rows if r["shape"] == "R")
+    re_by_path = {"join": re_join, "table": re_table, "sql": re_sql, "dist": re_dist,
+                  "dist_table": re_dt, "demo": re_demo, "examples": re_examples}
+    re_rows = (re_join_rows + re_table_rows + re_sql_rows + re_dist_rows + re_dt_rows
+               + re_demo_rows + re_ex_rows)
+    re_big = max(re_rows, key=lambda r: r["rows"])
     print(json.dumps({"kernels": [{
         "name": "bucket_extract",
         "route": "cuda",
@@ -3683,6 +3810,21 @@ def main():
                  "the same); every shape in calls",
         "calls": (k2_rows + k2_table_rows + k2_sql_rows + k2_dist_rows + k2_dt_rows
                   + k2_demo_rows + k2_ex_rows),
+    }, {
+        "name": "run_end_values",
+        "route": "cuda",
+        "source": "radix_sort_tpu_torch/csrc/run_ends.cu",
+        "replaces": None,  # the JAX package's reversed running min is an XLA scan
+        "launches": sum(re_by_path.values()),
+        "launches_by_path": re_by_path,
+        "ms": re_big["ms"],
+        "plain_ms": re_big["plain_ms"],
+        "bound_ms": re_big["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": re_big["library_ms"],  # zeros + scatter_reduce_ amax, as replaced
+        "shape": f"{re_big['shape']}: the largest union; every SQL union and each other "
+                 "path's largest in calls",
+        "calls": re_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

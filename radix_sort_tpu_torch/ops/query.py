@@ -42,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from radix_sort_tpu_torch import keys as K
-from radix_sort_tpu_torch.ops import expand
+from radix_sort_tpu_torch.ops import expand, run_ends
 from radix_sort_tpu_torch.ops._cosort import cosort
 from radix_sort_tpu_torch.ops.expand import expand_offsets
 
@@ -190,8 +190,11 @@ def merge_rank_pair(sorted_arr, queries):
     data gives each query its left rank; the right rank adds the query's
     equal-key data run: the data count at the run's end, spread over the
     run (the reference fills it backwards with a reversed running min; the
-    port takes a max per run). A final sort restores query order for
-    both outputs together. Key operands may be limb lists.
+    port stores each run's value at its last row,
+    :func:`run_ends.run_end_values`: one store per run end, so a run of
+    millions of equal keys costs its rows and no more). A final sort
+    restores query order for both outputs together. Key operands may be
+    limb lists.
     """
     d_limbs = _as_limb_list(sorted_arr)
     q_limbs = _as_limb_list(queries)
@@ -210,16 +213,16 @@ def merge_rank_pair(sorted_arr, queries):
     isq = (p2 != _INT32_MAX).to(torch.int32)
     lo_pos = torch.arange(n, dtype=torch.int32, device=dev) - _exclusive_cumsum(isq)
     cum_data = torch.cumsum(1 - isq, 0, dtype=torch.int32)
-    # the reference's reversed running min over the run ends, as a max per
-    # equal-key run (cum_data never decreases, so a run's max is its end
-    # value): PyTorch's cummin, which also makes indices, scans a long 1-D
-    # tensor in one row and took 83% of a 75M-row union's join time on the
-    # H100 (PERF.md)
+    # the reference's reversed running min over the run ends, as each
+    # equal-key run's value at its last row (cum_data never decreases, so
+    # that is the run's max): PyTorch's cummin, which also makes indices,
+    # scans a long 1-D tensor in one row (83% of a 75M-row union's join time
+    # on the H100), and an atomic max per run serialises on a long run
+    # (PERF.md)
     run_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                            _limbs_differ([w[1:] for w in k2], [w[:-1] for w in k2])])
     run_id = torch.cumsum(run_start, 0, dtype=torch.int64) - 1
-    run_max = torch.zeros((n,), dtype=torch.int32, device=dev)
-    run_max.scatter_reduce_(0, run_id, cum_data, "amax", include_self=False)
+    run_max = run_ends.run_end_values(run_start, run_id, cum_data)
     hi_pos = run_max[run_id]
     _, lo2, hi2 = _stable_sort([torch.where(isq == 1, p2, _INT32_MAX), lo_pos, hi_pos],
                                num_keys=1)

@@ -497,9 +497,8 @@ def distributed_hash_join(left_keys, left_values, right_keys, right_values, mesh
         # merge ranks of the received valid prefixes only. For valid left
         # rows they equal the reference's ranks over the padded buffers cut
         # at the received count; padding rows get empty ranges and are
-        # masked. (The padding shares one sentinel key, and a run of
-        # millions of equal keys serialises merge_rank_pair's per-run max:
-        # 97.6% of a 2.9 s distributed J1 on the H100.)
+        # masked. (The padding shares one sentinel key: a run of millions of
+        # equal keys that would ride the union sort for nothing.)
         nl, nr = lcnt[d], rcnt[d]
         dev = lws[j][0].device
         lo = torch.zeros((cap_l,), dtype=torch.int32, device=dev)

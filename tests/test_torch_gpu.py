@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import radix_sort_tpu_torch as rst
-from radix_sort_tpu_torch.ops import expand, extract
+from radix_sort_tpu_torch.ops import expand, extract, run_ends
+from radix_sort_tpu_torch.ops import query as rq
 from radix_sort_tpu_torch.utils import timing
 
 
@@ -206,6 +207,66 @@ def test_hash_join_on_card_matches_cpu(cuda, how):
     assert expand.LAUNCHES > before  # duplicate right keys: lookup expands too
     for g, c in zip(gpu, cpu):
         assert g.is_cuda and g.dtype == c.dtype and torch.equal(g.cpu(), c)
+
+
+def _runs_on_card(n, long_run, at_end, seed):
+    """(run_start, run_id, values) of n rows on the card: runs of a few rows,
+    one run of ``long_run`` rows (in the middle, or ending at the last row),
+    and values a non-decreasing count, as merge_rank_pair's data count."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    run_start = torch.rand(n, device="cuda", generator=g) < 0.3
+    a = n - long_run if at_end else (n - long_run) // 2
+    run_start[a + 1:a + long_run] = False
+    run_start[0] = True
+    run_id = torch.cumsum(run_start, 0, dtype=torch.int64) - 1
+    values = torch.cumsum(torch.rand(n, device="cuda", generator=g) < 0.5, 0, dtype=torch.int32)
+    return run_start, run_id, values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,long_run,at_end", [
+    (1 << 20, 300_000, False),
+    ((1 << 20) + 13, 70_001, True),  # a ragged last warp; the long run is the last
+    (127_086_451, 52_000_000, False),  # the joins cell's union: Q3's second join at SF10
+])
+def test_run_ends_kernel_matches_plain(cuda, n, long_run, at_end):
+    """The run-ends kernel writes each run's entry bit for bit as the plain
+    version does, into an output poisoned with 0x5A5A5A5A, and no other
+    entry; each call is one launch."""
+    run_start, run_id, values = _runs_on_card(n, long_run, at_end, seed=n)
+    runs = int(run_id[-1]) + 1
+    ref = run_ends.run_end_values_plain(run_start, run_id, values)
+    out = torch.full((n,), POISON, dtype=torch.int32, device="cuda")
+    before = run_ends.LAUNCHES
+    run_ends.launch(run_start, run_id, values, out)
+    got = run_ends.run_end_values(run_start, run_id, values)
+    assert run_ends.LAUNCHES == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out[:runs], ref[:runs]) and torch.equal(got[:runs], ref[:runs])
+    assert bool((out[runs:] == POISON).all())
+    with pytest.raises(ValueError, match="aligned"):
+        run_ends.launch(run_start[1:], run_id[1:], values[1:], out[1:])
+
+
+@pytest.mark.cuda
+def test_merge_rank_pair_on_card_launches_run_ends(cuda, monkeypatch):
+    """On the card merge_rank_pair takes the kernel, never the plain version,
+    and matches the CPU bit for bit on a union with one padded run."""
+
+    def never(*args):
+        raise AssertionError("the CUDA path reached the plain version")
+
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(np.sort(rng.integers(0, 5000, 40_000)).astype(np.int32))
+    q = np.concatenate([rng.integers(0, 5000, 20_000), np.full(200_000, 4999)])
+    queries = torch.from_numpy(rng.permutation(q).astype(np.int32))
+    cpu = rq.merge_rank_pair(data, queries)
+    monkeypatch.setattr(run_ends, "run_end_values_plain", never)
+    before = run_ends.LAUNCHES
+    gpu = rq.merge_rank_pair(data.cuda(), queries.cuda())
+    assert run_ends.LAUNCHES == before + 1
+    for g, c in zip(gpu, cpu):
+        assert g.is_cuda and torch.equal(g.cpu(), c)
 
 
 @pytest.mark.cuda
