@@ -20,7 +20,9 @@ Every all-gather runs inside the ``torch.profiler`` range
 of :mod:`.dist_sort`, the routes home and the neighbour shifts of
 :mod:`.dist_window`) inside :data:`EXCHANGE_RANGE`; the two never nest,
 so a profile reads each one's device time apart. A range costs nothing
-while no profiler runs.
+while no profiler runs. :data:`PEER_BYTES` counts the bytes these
+functions move between two devices or two processes (a copy within one
+device moves none).
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "any_true", "all_to_all", "cat", "shift", "EXCHANGE_RANGE",
-           "GATHER_RANGE"]
+           "GATHER_RANGE", "PEER_BYTES"]
 
 EXCHANGE_RANGE = "distributed exchange"
 GATHER_RANGE = "distributed all-gather"
+PEER_BYTES = 0
 
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
@@ -42,13 +45,28 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8)
 
 
+def _move(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device``, its bytes counted in :data:`PEER_BYTES` when
+    they change device."""
+    global PEER_BYTES
+    if x.device != torch.device(device):
+        PEER_BYTES += x.numel() * x.element_size()
+    return x.to(device)
+
+
+def _sent(nbytes: int) -> None:
+    """Count ``nbytes`` sent to other processes in :data:`PEER_BYTES`."""
+    global PEER_BYTES
+    PEER_BYTES += nbytes
+
+
 def cat(xs, device=None) -> torch.Tensor:
     """``torch.cat`` of 1-D tensors of one dtype on ``device``; unsigned
     dtypes are joined as their signed views (not every device has unsigned
     kernels)."""
     dtype = xs[0].dtype
     sdt = _SIGNED_VIEW.get(dtype, dtype)
-    return torch.cat([x.reshape(-1).view(sdt).to(device or x.device) for x in xs]).view(dtype)
+    return torch.cat([_move(x.reshape(-1).view(sdt), device or x.device) for x in xs]).view(dtype)
 
 
 def all_gather(mesh, xs, *, label: str = GATHER_RANGE) -> torch.Tensor:
@@ -63,6 +81,7 @@ def all_gather(mesh, xs, *, label: str = GATHER_RANGE) -> torch.Tensor:
             return local
         buf = _bytes(local)
         parts = [torch.empty_like(buf) for _ in range(mesh.num_processes)]
+        _sent(buf.numel() * (mesh.num_processes - 1))
         dist.all_gather(parts, buf)
         return torch.cat(parts).view(local.dtype)
 
@@ -87,7 +106,11 @@ def all_to_all(mesh, pieces, sizes):
     s order it lands source-major."""
     P, local = mesh.size, mesh.local
     if not mesh.multiprocess:
-        return [[pieces[local.index(s)][d].to(dev) for s in range(P)]
+        # PyTorch runs a copy between two cards on the source card's current
+        # stream, behind an event barrier each way with the destination's
+        # stream; issued in this order, destination by destination, each
+        # copy waits for the one before it, so the cards' copies do not overlap
+        return [[_move(pieces[local.index(s)][d], dev) for s in range(P)]
                 for d, dev in zip(local, mesh.devices)]
     dtype = pieces[0][0].dtype
     item = torch.empty((), dtype=dtype).element_size()
@@ -97,10 +120,11 @@ def all_to_all(mesh, pieces, sizes):
     send = [pieces[i][d] for r in procs for d in slots_of[r] for i in range(len(local))]
     in_split = [item * sum(sizes[s][d] for d in slots_of[r] for s in local) for r in procs]
     out_split = [item * sum(sizes[s][d] for d in local for s in slots_of[r]) for r in procs]
-    sbuf = _bytes(torch.cat([p.to(mesh.home) for p in send])) if send else None
+    sbuf = _bytes(torch.cat([_move(p, mesh.home) for p in send])) if send else None
     rbuf = torch.empty((sum(out_split),), dtype=torch.uint8, device=mesh.home)
     if sbuf is None or sbuf.numel() == 0:
         sbuf = torch.empty((0,), dtype=torch.uint8, device=mesh.home)
+    _sent(sum(b for r, b in zip(procs, in_split) if r != mesh.rank))
     dist.all_to_all_single(rbuf, sbuf, out_split, in_split)
     recv = [[None] * P for _ in local]
     off = 0
@@ -108,7 +132,7 @@ def all_to_all(mesh, pieces, sizes):
         for j, d in enumerate(local):
             for s in slots_of[r]:
                 nb = item * sizes[s][d]
-                recv[j][s] = rbuf[off:off + nb].view(dtype).to(mesh.devices[j])
+                recv[j][s] = _move(rbuf[off:off + nb].view(dtype), mesh.devices[j])
                 off += nb
     return recv
 
@@ -124,7 +148,7 @@ def shift(mesh, xs, offset: int):
     with torch.profiler.record_function(EXCHANGE_RANGE):
         if not mesh.multiprocess:
             src = {s: x for s, x in zip(mesh.local, xs)}
-            return [src[d - offset].to(dev) if 0 <= d - offset < P
+            return [_move(src[d - offset], dev) if 0 <= d - offset < P
                     else torch.zeros_like(xs[0], device=dev)
                     for d, dev in zip(mesh.local, mesh.devices)]
         # an exact-count exchange with one non-empty piece per source

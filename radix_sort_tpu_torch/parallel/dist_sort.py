@@ -38,6 +38,14 @@ reference's int32 ``arange(m) * n_local`` wraps once ``m * n_local``
 reaches 2**31, e.g. at 62.5M rows a slot on 4 slots); and the overflow
 fallback is a host branch on one synchronised flag where the reference
 uses ``lax.cond``.
+
+Tracing: the phases run inside the ``torch.profiler`` ranges
+:data:`LOCAL_SORT_RANGE`, :data:`SPLITTERS_RANGE` and
+:data:`FINAL_SORT_RANGE` (the exchange inside
+``collectives.EXCHANGE_RANGE``); :data:`CALLS` counts the distributed
+sorts run, :data:`OVERFLOWS` those that overflowed into the replicated
+fallback, and :data:`HOST_READS` the syncing host reads of this module's
+functions (one a ragged sort: the exchange sizes).
 """
 
 from __future__ import annotations
@@ -50,6 +58,12 @@ from radix_sort_tpu_torch.parallel import collectives as C
 from radix_sort_tpu_torch.parallel.runtime import Sharded, local_blocks
 
 __all__ = [
+    "CALLS",
+    "FINAL_SORT_RANGE",
+    "HOST_READS",
+    "LOCAL_SORT_RANGE",
+    "OVERFLOWS",
+    "SPLITTERS_RANGE",
     "default_exchange",
     "distributed_sort",
     "distributed_sort_pairs",
@@ -59,6 +73,21 @@ __all__ = [
 ]
 
 EXCHANGES = ("ragged", "gather", "pipelined")
+
+LOCAL_SORT_RANGE = "distributed local sort"
+SPLITTERS_RANGE = "distributed splitters"
+FINAL_SORT_RANGE = "distributed final sort"
+CALLS = 0
+OVERFLOWS = 0
+HOST_READS = 0
+
+
+def _read(x: torch.Tensor) -> list:
+    """``x.tolist()``: a host read that waits for the devices, counted in
+    :data:`HOST_READS`."""
+    global HOST_READS
+    HOST_READS += 1
+    return x.tolist()
 
 
 def _num_samples(n_local: int, num_slots: int) -> int:
@@ -197,7 +226,7 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
     d's buffer holds the runs of sources 0, 1, ... back to back."""
     P = mesh.size
     n_local = slot_ops[0][0].shape[0]
-    starts = C.all_gather(mesh, slot_starts).reshape(P, P).tolist()
+    starts = _read(C.all_gather(mesh, slot_starts).reshape(P, P))
     allc = [[(starts[s][d + 1] if d + 1 < P else n_local) - starts[s][d] for d in range(P)]
             for s in range(P)]
     oo = [[0] * P for _ in range(P)]
@@ -256,8 +285,8 @@ def _gather_exchange(mesh, slot_ops, fills, bounds, capacity, num_keys):
         outs.append([torch.cat([x[:take], _fill(x, f, capacity - take)])
                      for x, f in zip(srt, fills)])
         n_valid.append(nv)
-    every = C.all_gather(mesh, [torch.tensor([nv], dtype=torch.int64, device=mesh.home)
-                                for nv in n_valid]).tolist()
+    every = _read(C.all_gather(mesh, [torch.tensor([nv], dtype=torch.int64, device=mesh.home)
+                                      for nv in n_valid]))
     overflow = any(nv > capacity for nv in every)
     dev_outs = [[x.to(dev) for x in ops] for ops, dev in zip(outs, mesh.devices)]
     return dev_outs, [min(nv, capacity) for nv in every], overflow
@@ -267,7 +296,8 @@ def _final_sort(ops, nk, n_valid, fills):
     """Stable sort of the valid prefix by its nk key operands; the padding
     tail (sentinel keys, zero values) stays behind it, as the reference's
     sort with a leading invalid flag leaves it."""
-    srt = Q._stable_sort([x[:n_valid] for x in ops], nk)
+    with torch.profiler.record_function(FINAL_SORT_RANGE):
+        srt = Q._stable_sort([x[:n_valid] for x in ops], nk)
     return [torch.cat([s, x[n_valid:]]) for s, x in zip(srt, ops)]
 
 
@@ -279,28 +309,33 @@ def _pipelined_exchange(mesh, words, values, capacity, sentinel, stripes=2):
     and the final merge sorts by ``(key, surrogate)``, so global stability
     holds exactly. ``words`` / ``values``: one tensor (or None) per local
     slot. Returns ``(words, values or None, counts, overflow)``."""
+    global HOST_READS
     P = mesh.size
     n_local = words[0].shape[0]
     if n_local % stripes:
         raise ValueError(f"n_local ({n_local}) must be divisible by stripes")
     sl = n_local // stripes
     has_vals = values is not None
-    srt = [[Q._stable_sort([w[s * sl:(s + 1) * sl]]
-                           + ([v[s * sl:(s + 1) * sl]] if has_vals else []), 1)
-            for s in range(stripes)] for w, v in zip(words, values or [None] * len(words))]
+    with torch.profiler.record_function(LOCAL_SORT_RANGE):
+        srt = [[Q._stable_sort([w[s * sl:(s + 1) * sl]]
+                               + ([v[s * sl:(s + 1) * sl]] if has_vals else []), 1)
+                for s in range(stripes)] for w, v in zip(words, values or [None] * len(words))]
     m = _num_samples(sl, P)
     ws, ps = [], []
-    for st, r in zip(srt, mesh.local):
-        pos = _sample_positions(sl, m, st[0][0].device)
-        ws.append([torch.cat([st[s][0][pos] for s in range(stripes)])])
-        ps.append(torch.cat([r * n_local + s * sl + pos for s in range(stripes)]).to(torch.int32))
-    sws, sp = _sketch_quantiles(mesh, ws, ps, stripes * m)
+    with torch.profiler.record_function(SPLITTERS_RANGE):
+        for st, r in zip(srt, mesh.local):
+            pos = _sample_positions(sl, m, st[0][0].device)
+            ws.append([torch.cat([st[s][0][pos] for s in range(stripes)])])
+            ps.append(torch.cat([r * n_local + s * sl + pos
+                                 for s in range(stripes)]).to(torch.int32))
+        sws, sp = _sketch_quantiles(mesh, ws, ps, stripes * m)
     fills = [sentinel] + ([0] if has_vals else [])
     got = [[] for _ in mesh.local]  # per local slot: (words, values, surrogate) per stripe
     overflow = False
     for s in range(stripes):
-        starts = [_below_starts([st[s][0]], r * n_local + s * sl, sws, sp)
-                  for st, r in zip(srt, mesh.local)]
+        with torch.profiler.record_function(SPLITTERS_RANGE):
+            starts = [_below_starts([st[s][0]], r * n_local + s * sl, sws, sp)
+                      for st, r in zip(srt, mesh.local)]
         recv, recv_n, ovf, sz = _ragged_exchange(mesh, [st[s] for st in srt], fills, starts,
                                                  capacity)
         overflow |= ovf
@@ -316,16 +351,19 @@ def _pipelined_exchange(mesh, words, values, capacity, sentinel, stripes=2):
         w = torch.cat([p[0] for p in parts])
         sur = torch.cat([p[-1] for p in parts])
         ops = [w, sur] + ([torch.cat([p[1] for p in parts])] if has_vals else [])
-        merged = Q._stable_sort(ops, 2)
+        with torch.profiler.record_function(FINAL_SORT_RANGE):
+            merged = Q._stable_sort(ops, 2)
         take = min(n_valid, capacity)
         out_w.append(torch.cat([merged[0][:take], _fill(w, sentinel, capacity - take)]))
         if has_vals:
             out_v.append(torch.cat([merged[2][:take], _fill(merged[2], 0, capacity - take)]))
         counts.append(torch.tensor([take], dtype=torch.int64, device=mesh.home))
         flags.append(torch.tensor(n_valid > capacity))
-    counts = C.all_gather(mesh, counts).tolist()
-    return (out_w, out_v if has_vals else None, counts,
-            overflow or C.any_true(mesh, flags))
+    counts = _read(C.all_gather(mesh, counts))
+    if not overflow:
+        HOST_READS += 1  # any_true reads its flag on the host
+        overflow = C.any_true(mesh, flags)
+    return out_w, out_v if has_vals else None, counts, overflow
 
 
 def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None,
@@ -353,23 +391,26 @@ def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None,
             mesh, [k[0] for k in key_ops], vals, capacity, sentinel)
         return ([[x] for x in w], [[x] for x in v] if v is not None else [[] for _ in w],
                 counts, overflow)
-    sorted_ops = [Q._stable_sort(k + v, nk) for k, v in zip(key_ops, val_ops)]
+    with torch.profiler.record_function(LOCAL_SORT_RANGE):
+        sorted_ops = [Q._stable_sort(k + v, nk) for k, v in zip(key_ops, val_ops)]
     fills = ([sentinel] + [torch.iinfo(w.dtype).max for w in key_ops[0][1:]]
              + [0] * len(val_ops[0]))
-    if splitters is None:
-        bounds = ("composite", _composite_splitters(mesh, [ops[:nk] for ops in sorted_ops]))
-    else:
-        bounds = ("key", splitters)
+    n_local = sorted_ops[0][0].shape[0]
+    with torch.profiler.record_function(SPLITTERS_RANGE):
+        if splitters is None:
+            bounds = ("composite",
+                      _composite_splitters(mesh, [ops[:nk] for ops in sorted_ops]))
+        else:
+            bounds = ("key", splitters)
+        if exchange == "ragged" and bounds[0] == "composite":
+            sws, sp = bounds[1]
+            starts = [_below_starts(ops[:nk], r * n_local, sws, sp)
+                      for ops, r in zip(sorted_ops, mesh.local)]
+        elif exchange == "ragged":
+            starts = [_key_starts(ops[0], splitters) for ops in sorted_ops]
     if exchange == "gather":
         recv, counts, overflow = _gather_exchange(mesh, sorted_ops, fills, bounds, capacity, nk)
         return [x[:nk] for x in recv], [x[nk:] for x in recv], counts, overflow
-    n_local = sorted_ops[0][0].shape[0]
-    if bounds[0] == "composite":
-        sws, sp = bounds[1]
-        starts = [_below_starts(ops[:nk], r * n_local, sws, sp)
-                  for ops, r in zip(sorted_ops, mesh.local)]
-    else:
-        starts = [_key_starts(ops[0], splitters) for ops in sorted_ops]
     recv, counts, overflow, _ = _ragged_exchange(mesh, sorted_ops, fills, starts, capacity)
     recv = [_final_sort(ops, nk, counts[d], fills) for ops, d in zip(recv, mesh.local)]
     return [x[:nk] for x in recv], [x[nk:] for x in recv], counts, overflow
@@ -395,7 +436,7 @@ def _route_home(mesh, slot_pos, slot_cols, n_local):
                                                      device=sp.device))
         edges = torch.cat([sp.new_zeros((1,)), bounds, sp.new_full((1,), sp.shape[0])])
         sizes_local.append(edges[1:] - edges[:-1])
-    sizes = C.all_gather(mesh, sizes_local).reshape(P, P).tolist()
+    sizes = _read(C.all_gather(mesh, sizes_local).reshape(P, P))
     starts = [[sum(sizes[s][:d]) for d in range(P)] for s in range(P)]
     ncols = len(slot_cols[0])
     with torch.profiler.record_function(C.EXCHANGE_RANGE):
@@ -445,6 +486,7 @@ def _dist_sort_impl(mesh, limbs, vals, capacity=None, exchange=None):
     """Core distributed sort over per-local-slot key limb lists ``limbs``
     and value lists ``vals``. Returns ``(key limb lists, value lists,
     counts (P,) int32, overflow 0-dim bool)``, lists per local slot."""
+    global CALLS, OVERFLOWS
     nk, nv = len(limbs[0]), len(vals[0])
     P = mesh.size
     n_local = limbs[0][0].shape[0]
@@ -469,6 +511,7 @@ def _dist_sort_impl(mesh, limbs, vals, capacity=None, exchange=None):
     sentinel = torch.iinfo(limbs[0][0].dtype).max
     fills = [sentinel] + [torch.iinfo(w.dtype).max for w in limbs[0][1:]] + [0] * nv
     no = torch.tensor(False, device=mesh.home)
+    CALLS += 1
     if P == 1:
         # degenerate mesh: the local stable sort in the padded layout
         ow, ov = _global_sort_fallback(mesh, limbs, vals, capacity, fills)
@@ -477,6 +520,7 @@ def _dist_sort_impl(mesh, limbs, vals, capacity=None, exchange=None):
                                                exchange=exchange)
     if overflow:
         # the replicated fallback gathers the whole input: it runs only here
+        OVERFLOWS += 1
         ow, ov = _global_sort_fallback(mesh, limbs, vals, capacity, fills)
         counts = [n_local] * P
     return ow, ov, _counts_tensor(mesh, counts), torch.tensor(overflow, device=mesh.home)
