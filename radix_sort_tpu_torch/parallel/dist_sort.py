@@ -11,9 +11,9 @@ Counterpart of ``radix_sort_tpu/parallel/dist_sort.py``, the same algorithm
      StepUniform regime, src/distr.rs:78-106, and the all-equal worst
      case) split evenly across slots, and every slot receives at most
      :func:`exchange_capacity` rows for any input;
-  3. an exact-count exchange of each slot's per-destination runs, landing
-     source-major in the destination's buffer
-     (:func:`collectives.all_to_all`);
+  3. an exact-count exchange of each slot's per-destination runs, each
+     landing at its source-major offset in the destination's padded buffer
+     (:func:`collectives.all_to_all_into`);
   4. a final stable local sort of the received rows; padding stays at the
      tail (sentinel keys, zero values).
 
@@ -223,7 +223,9 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
     and receivers clamp identically even when a capacity override forces
     overflow. Returns ``(received ops per local slot, received count of
     every slot, overflow, sizes sz[src][dst] of the landed runs)``; slot
-    d's buffer holds the runs of sources 0, 1, ... back to back."""
+    d's buffer of ``capacity`` rows is allocated first and holds the runs
+    of sources 0, 1, ... back to back, each landed at its offset, then the
+    fill."""
     P = mesh.size
     n_local = slot_ops[0][0].shape[0]
     starts = _read(C.all_gather(mesh, slot_starts).reshape(P, P))
@@ -241,13 +243,19 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
     recv_n = [sum(sz[s][d] for s in range(P)) for d in range(P)]
     outs = [[] for _ in mesh.local]
     with torch.profiler.record_function(C.EXCHANGE_RANGE):
+        columns = []
         for k, fill in enumerate(fills):
             pieces = [[ops[k][starts[s][d]:starts[s][d] + sz[s][d]] for d in range(P)]
                       for ops, s in zip(slot_ops, mesh.local)]
-            recv = C.all_to_all(mesh, pieces, sz)
-            for j, d in enumerate(mesh.local):
-                got = recv[j]
-                outs[j].append(torch.cat(got + [_fill(got[0], fill, capacity - recv_n[d])]))
+            bufs = []
+            for j, (d, dev) in enumerate(zip(mesh.local, mesh.devices)):
+                buf = torch.empty((capacity,), dtype=slot_ops[j][k].dtype, device=dev)
+                buf[recv_n[d]:].fill_(fill)
+                bufs.append(buf)
+                outs[j].append(buf)
+            columns.append((pieces, bufs))
+        # the runs are clamped back to back, so each lands at its offset
+        C.all_to_all_into(mesh, columns, sz, oo)
     return outs, recv_n, overflow, sz
 
 
