@@ -72,9 +72,9 @@ started together) and drives the port's paths:
   * the distributed layer (phase 11) on a mesh of 4 slots on the card
     (``parallel/``: the slots share the process, the exchange is
     device-local copies): D1 ``distributed_sort_pairs`` of 250M uniform
-    (u64, u64) rows, and at 31.25M rows the all-gather and pipelined
-    exchanges and an 8-slot mesh, each bit-exact slot by slot against a
-    stable ``torch.sort`` with every count within ``exchange_capacity``;
+    (u64, u64) rows, and 31.25M rows on an 8-slot mesh, each bit-exact
+    slot by slot against a stable ``torch.sort`` with every count within
+    ``exchange_capacity``;
     D2 step-uniform and all-equal keys, and a ``capacity=`` override whose
     fallback is exact; D3 J1 and J2 as ``distributed_hash_join`` (K2 once
     per slot) against the single-device ``rst.hash_join`` as multisets of
@@ -2245,8 +2245,8 @@ def _time_run_starts(ks, mesh):
 
 def d_sort(gen, mesh, mesh8):
     """D1 and D2: the distributed sort on uniform, step-uniform and
-    all-equal keys, every exchange, 4 and 8 slots and the forced fallback,
-    each bit-exact against a stable torch.sort. Returns the workloads."""
+    all-equal keys, 4 and 8 slots and the forced fallback, each bit-exact
+    against a stable torch.sort. Returns the workloads."""
     work = {}
     keys = dist.key_uniform(gen, D1_ROWS, torch.uint64)
     vals = dist.key_uniform(gen, D1_ROWS, torch.uint64)
@@ -2269,23 +2269,20 @@ def d_sort(gen, mesh, mesh8):
     n = D_SMALL
     small_k, small_v = keys[:n].clone(), vals[:n].clone()
     ref_k, ref_v = _sort_oracle(small_k, small_v)
-    sk, sv = rdist.shard_rows(mesh, small_k, small_v)
     sk8, sv8 = rdist.shard_rows(mesh8, small_k, small_v)
-    variants = {"gather": lambda: rdsort.distributed_sort_pairs(sk, sv, mesh, exchange="gather"),
-                "pipelined": lambda: rdsort.distributed_sort_pairs(sk, sv, mesh,
-                                                                   exchange="pipelined"),
-                "8 slots": lambda: rdsort.distributed_sort_pairs(sk8, sv8, mesh8)}
-    for name, call in variants.items():
-        k, v, counts, ovf = call()
-        slots = counts.shape[0]
-        check(not bool(ovf), f"D1 {name}: overflow")
-        check(int(counts.max()) <= rdsort.exchange_capacity(n // slots, slots),
-              f"D1 {name}: count above the bound")
-        _check_sorted_slots(k, v, counts, ref_k, ref_v, f"D1 {name}")
-        log(f"D1 {name}: {n:,} rows bit-exact, counts {counts.tolist()}")
-        del k, v
-        work[f"D1-{name.replace(' ', '')} distributed_sort_pairs 31.25M, {name}"] = (
-            call, lambda: _sort_oracle(small_k, small_v), n)
+
+    def call():
+        return rdsort.distributed_sort_pairs(sk8, sv8, mesh8)
+
+    k, v, counts, ovf = call()
+    check(not bool(ovf), "D1 8 slots: overflow")
+    check(int(counts.max()) <= rdsort.exchange_capacity(n // mesh8.size, mesh8.size),
+          "D1 8 slots: count above the bound")
+    _check_sorted_slots(k, v, counts, ref_k, ref_v, "D1 8 slots")
+    log(f"D1 8 slots: {n:,} rows bit-exact, counts {counts.tolist()}")
+    del k, v
+    work["D1-8slots distributed_sort_pairs 31.25M, 8 slots"] = (
+        call, lambda: _sort_oracle(small_k, small_v), n)
     del ref_k, ref_v
 
     for name, x in (("step_uniform", dist.step_uniform(gen, n, 16, torch.uint64)),

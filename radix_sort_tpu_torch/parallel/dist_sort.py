@@ -11,7 +11,7 @@ Counterpart of ``radix_sort_tpu/parallel/dist_sort.py``, the same algorithm
      StepUniform regime, src/distr.rs:78-106, and the all-equal worst
      case) split evenly across slots, and every slot receives at most
      :func:`exchange_capacity` rows for any input;
-  3. an exact-count exchange of each slot's per-destination runs, each
+  3. one exchange, exact-count: each slot's per-destination runs, each
      landing at its source-major offset in the destination's padded buffer
      (:func:`collectives.all_to_all_into`);
   4. a final stable local sort of the received rows; padding stays at the
@@ -37,7 +37,10 @@ reference's compare-sum); sample positions are computed in int64 (the
 reference's int32 ``arange(m) * n_local`` wraps once ``m * n_local``
 reaches 2**31, e.g. at 62.5M rows a slot on 4 slots); and the overflow
 fallback is a host branch on one synchronised flag where the reference
-uses ``lax.cond``.
+uses ``lax.cond``. The reference's ``exchange`` option is not ported: its
+``"gather"`` mode is its fallback off the TPU, and its ``"pipelined"``
+stripes overlap XLA's asynchronous collectives with the next stripe's
+sort; neither has a counterpart here.
 
 Tracing: the phases run inside the ``torch.profiler`` ranges
 :data:`LOCAL_SORT_RANGE`, :data:`SPLITTERS_RANGE` and
@@ -45,7 +48,7 @@ Tracing: the phases run inside the ``torch.profiler`` ranges
 ``collectives.EXCHANGE_RANGE``); :data:`CALLS` counts the distributed
 sorts run, :data:`OVERFLOWS` those that overflowed into the replicated
 fallback, and :data:`HOST_READS` the syncing host reads of this module's
-functions (one a ragged sort: the exchange sizes).
+functions (one a sort: the exchange sizes).
 """
 
 from __future__ import annotations
@@ -64,15 +67,11 @@ __all__ = [
     "LOCAL_SORT_RANGE",
     "OVERFLOWS",
     "SPLITTERS_RANGE",
-    "default_exchange",
     "distributed_sort",
     "distributed_sort_pairs",
     "distributed_sort_limbs",
     "exchange_capacity",
-    "EXCHANGES",
 ]
-
-EXCHANGES = ("ragged", "gather", "pipelined")
 
 LOCAL_SORT_RANGE = "distributed local sort"
 SPLITTERS_RANGE = "distributed splitters"
@@ -107,12 +106,6 @@ def exchange_capacity(n_local: int, num_slots: int) -> int:
     cap = n_local + (num_slots * num_slots * n_local) // m
     cap += 2 * num_slots * gap + num_slots + 64
     return -(-cap // 8) * 8
-
-
-def default_exchange() -> str:
-    """``"ragged"`` everywhere: the port has an exact-count exchange on
-    every device (the JAX package falls back to ``"gather"`` off the TPU)."""
-    return "ragged"
 
 
 def _sample_positions(n_local: int, m: int, device) -> torch.Tensor:
@@ -154,14 +147,6 @@ def _lex_below(ws, p, sws, sp):
     for w, sw in zip(reversed(ws), reversed(sws)):
         below = (w < sw) | ((w == sw) & below)
     return below
-
-
-def _lex_ge(ws, p, sws, sp):
-    """Row-wise ``(ws..., p) >= (sws..., sp)`` in lexicographic order."""
-    ge = p >= sp
-    for w, sw in zip(reversed(ws), reversed(sws)):
-        ge = (w > sw) | ((w == sw) & ge)
-    return ge
 
 
 def _below_counts(s_limbs, base, sws, sp):
@@ -222,10 +207,9 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
     n_local). Every size comes from the gathered start matrix, so senders
     and receivers clamp identically even when a capacity override forces
     overflow. Returns ``(received ops per local slot, received count of
-    every slot, overflow, sizes sz[src][dst] of the landed runs)``; slot
-    d's buffer of ``capacity`` rows is allocated first and holds the runs
-    of sources 0, 1, ... back to back, each landed at its offset, then the
-    fill."""
+    every slot, overflow)``; slot d's buffer of ``capacity`` rows is
+    allocated first and holds the runs of sources 0, 1, ... back to back,
+    each landed at its offset, then the fill."""
     P = mesh.size
     n_local = slot_ops[0][0].shape[0]
     starts = _read(C.all_gather(mesh, slot_starts).reshape(P, P))
@@ -256,48 +240,7 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
             columns.append((pieces, bufs))
         # the runs are clamped back to back, so each lands at its offset
         C.all_to_all_into(mesh, columns, sz, oo)
-    return outs, recv_n, overflow, sz
-
-
-def _gather_exchange(mesh, slot_ops, fills, bounds, capacity, num_keys):
-    """The all-gather exchange: every slot gathers all shards (slot-major,
-    so the flat index orders ties by input position) and keeps its own
-    splitter range, stably sorted. P times the wire bytes of the ragged
-    exchange; the reference's off-TPU path. ``bounds``: ``("composite",
-    (limb list, positions))`` or ``("key", splitters)`` on the leading
-    word. Returns ``(ops per local slot, count of every slot, overflow)``.
-    The rows' all-gather is this mode's exchange, and profiles as one."""
-    P = mesh.size
-    g = [C.all_gather(mesh, [ops[k] for ops in slot_ops], label=C.EXCHANGE_RANGE)
-         for k in range(len(fills))]
-    n_total = g[0].shape[0]
-    kind, lim = bounds
-    outs, n_valid = [], []
-    for me in mesh.local:
-        if kind == "composite":
-            sws, sp = lim
-            gpos = torch.arange(n_total, dtype=torch.int64, device=mesh.home)
-            ks = g[:num_keys]
-            ge_lo = (_lex_ge(ks, gpos, [w[me - 1] for w in sws], sp[me - 1]) if me > 0
-                     else torch.ones_like(gpos, dtype=torch.bool))
-            lt_hi = (~_lex_ge(ks, gpos, [w[me] for w in sws], sp[me]) if me < P - 1
-                     else torch.ones_like(gpos, dtype=torch.bool))
-        else:
-            w = g[0]
-            ge_lo = w >= lim[me - 1] if me > 0 else torch.ones_like(w, dtype=torch.bool)
-            lt_hi = w < lim[me] if me < P - 1 else torch.ones_like(w, dtype=torch.bool)
-        idx = torch.nonzero(ge_lo & lt_hi).reshape(-1)
-        nv = idx.shape[0]
-        take = min(nv, capacity)
-        srt = Q._stable_sort([Q._take(x, idx) for x in g], num_keys)
-        outs.append([torch.cat([x[:take], _fill(x, f, capacity - take)])
-                     for x, f in zip(srt, fills)])
-        n_valid.append(nv)
-    every = _read(C.all_gather(mesh, [torch.tensor([nv], dtype=torch.int64, device=mesh.home)
-                                      for nv in n_valid]))
-    overflow = any(nv > capacity for nv in every)
-    dev_outs = [[x.to(dev) for x in ops] for ops, dev in zip(outs, mesh.devices)]
-    return dev_outs, [min(nv, capacity) for nv in every], overflow
+    return outs, recv_n, overflow
 
 
 def _final_sort(ops, nk, n_valid, fills):
@@ -309,73 +252,7 @@ def _final_sort(ops, nk, n_valid, fills):
     return [torch.cat([s, x[n_valid:]]) for s, x in zip(srt, ops)]
 
 
-def _pipelined_exchange(mesh, words, values, capacity, sentinel, stripes=2):
-    """The striped exchange: each slot's rows split into ``stripes``
-    stripes, each sorted, routed and exchanged on its own, with one union
-    sketch over all stripes. Every row carries the monotone position
-    surrogate ``src_slot * n_local + stripe * stripe_len + sorted index``,
-    and the final merge sorts by ``(key, surrogate)``, so global stability
-    holds exactly. ``words`` / ``values``: one tensor (or None) per local
-    slot. Returns ``(words, values or None, counts, overflow)``."""
-    global HOST_READS
-    P = mesh.size
-    n_local = words[0].shape[0]
-    if n_local % stripes:
-        raise ValueError(f"n_local ({n_local}) must be divisible by stripes")
-    sl = n_local // stripes
-    has_vals = values is not None
-    with torch.profiler.record_function(LOCAL_SORT_RANGE):
-        srt = [[Q._stable_sort([w[s * sl:(s + 1) * sl]]
-                               + ([v[s * sl:(s + 1) * sl]] if has_vals else []), 1)
-                for s in range(stripes)] for w, v in zip(words, values or [None] * len(words))]
-    m = _num_samples(sl, P)
-    ws, ps = [], []
-    with torch.profiler.record_function(SPLITTERS_RANGE):
-        for st, r in zip(srt, mesh.local):
-            pos = _sample_positions(sl, m, st[0][0].device)
-            ws.append([torch.cat([st[s][0][pos] for s in range(stripes)])])
-            ps.append(torch.cat([r * n_local + s * sl + pos
-                                 for s in range(stripes)]).to(torch.int32))
-        sws, sp = _sketch_quantiles(mesh, ws, ps, stripes * m)
-    fills = [sentinel] + ([0] if has_vals else [])
-    got = [[] for _ in mesh.local]  # per local slot: (words, values, surrogate) per stripe
-    overflow = False
-    for s in range(stripes):
-        with torch.profiler.record_function(SPLITTERS_RANGE):
-            starts = [_below_starts([st[s][0]], r * n_local + s * sl, sws, sp)
-                      for st, r in zip(srt, mesh.local)]
-        recv, recv_n, ovf, sz = _ragged_exchange(mesh, [st[s] for st in srt], fills, starts,
-                                                 capacity)
-        overflow |= ovf
-        for j, d in enumerate(mesh.local):
-            dev = recv[j][0].device
-            sur = torch.cat([torch.arange(sz[src][d], dtype=torch.int32, device=dev)
-                             + (src * n_local + s * sl) for src in range(P)])
-            got[j].append([x[:recv_n[d]] for x in recv[j]] + [sur])
-    out_w, out_v, counts, flags = [], [], [], []
-    for j, d in enumerate(mesh.local):
-        parts = got[j]
-        n_valid = sum(p[0].shape[0] for p in parts)
-        w = torch.cat([p[0] for p in parts])
-        sur = torch.cat([p[-1] for p in parts])
-        ops = [w, sur] + ([torch.cat([p[1] for p in parts])] if has_vals else [])
-        with torch.profiler.record_function(FINAL_SORT_RANGE):
-            merged = Q._stable_sort(ops, 2)
-        take = min(n_valid, capacity)
-        out_w.append(torch.cat([merged[0][:take], _fill(w, sentinel, capacity - take)]))
-        if has_vals:
-            out_v.append(torch.cat([merged[2][:take], _fill(merged[2], 0, capacity - take)]))
-        counts.append(torch.tensor([take], dtype=torch.int64, device=mesh.home))
-        flags.append(torch.tensor(n_valid > capacity))
-    counts = _read(C.all_gather(mesh, counts))
-    if not overflow:
-        HOST_READS += 1  # any_true reads its flag on the host
-        overflow = C.any_true(mesh, flags)
-    return out_w, out_v if has_vals else None, counts, overflow
-
-
-def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None,
-                    exchange=None):
+def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None):
     """The distributed body: ``key_ops[i]`` / ``val_ops[i]`` are local slot
     i's key limb list and value list (one slot's operands share a length).
 
@@ -383,22 +260,9 @@ def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None,
     (a join routing both sides on one shared sketch: equal tuples share the
     leading limb, so they still co-locate); when None, composite
     regular-sampled ``(key limbs..., position)`` splitters are drawn from
-    this data. ``exchange``: ``"ragged"`` (default), ``"gather"`` or
-    ``"pipelined"`` (one key word and at most one value operand, own
-    splitters). Returns ``(key ops per local slot, value ops per local
-    slot, counts of every slot, overflow)``."""
-    exchange = exchange or default_exchange()
+    this data. Returns ``(key ops per local slot, value ops per local slot,
+    counts of every slot, overflow)``."""
     nk = len(key_ops[0])
-    if exchange == "pipelined":
-        if splitters is not None:
-            raise ValueError("pipelined exchange draws its own splitters")
-        if nk > 1 or len(val_ops[0]) > 1:
-            raise ValueError("pipelined exchange supports single-word keys")
-        vals = [v[0] for v in val_ops] if val_ops[0] else None
-        w, v, counts, overflow = _pipelined_exchange(
-            mesh, [k[0] for k in key_ops], vals, capacity, sentinel)
-        return ([[x] for x in w], [[x] for x in v] if v is not None else [[] for _ in w],
-                counts, overflow)
     with torch.profiler.record_function(LOCAL_SORT_RANGE):
         sorted_ops = [Q._stable_sort(k + v, nk) for k, v in zip(key_ops, val_ops)]
     fills = ([sentinel] + [torch.iinfo(w.dtype).max for w in key_ops[0][1:]]
@@ -406,20 +270,12 @@ def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None,
     n_local = sorted_ops[0][0].shape[0]
     with torch.profiler.record_function(SPLITTERS_RANGE):
         if splitters is None:
-            bounds = ("composite",
-                      _composite_splitters(mesh, [ops[:nk] for ops in sorted_ops]))
-        else:
-            bounds = ("key", splitters)
-        if exchange == "ragged" and bounds[0] == "composite":
-            sws, sp = bounds[1]
+            sws, sp = _composite_splitters(mesh, [ops[:nk] for ops in sorted_ops])
             starts = [_below_starts(ops[:nk], r * n_local, sws, sp)
                       for ops, r in zip(sorted_ops, mesh.local)]
-        elif exchange == "ragged":
+        else:
             starts = [_key_starts(ops[0], splitters) for ops in sorted_ops]
-    if exchange == "gather":
-        recv, counts, overflow = _gather_exchange(mesh, sorted_ops, fills, bounds, capacity, nk)
-        return [x[:nk] for x in recv], [x[nk:] for x in recv], counts, overflow
-    recv, counts, overflow, _ = _ragged_exchange(mesh, sorted_ops, fills, starts, capacity)
+    recv, counts, overflow = _ragged_exchange(mesh, sorted_ops, fills, starts, capacity)
     recv = [_final_sort(ops, nk, counts[d], fills) for ops, d in zip(recv, mesh.local)]
     return [x[:nk] for x in recv], [x[nk:] for x in recv], counts, overflow
 
@@ -490,12 +346,12 @@ def _counts_tensor(mesh, counts):
     return torch.tensor(counts, dtype=torch.int32, device=mesh.home)
 
 
-def _dist_sort_impl(mesh, limbs, vals, capacity=None, exchange=None):
+def _dist_sort_impl(mesh, limbs, vals, capacity=None):
     """Core distributed sort over per-local-slot key limb lists ``limbs``
     and value lists ``vals``. Returns ``(key limb lists, value lists,
     counts (P,) int32, overflow 0-dim bool)``, lists per local slot."""
     global CALLS, OVERFLOWS
-    nk, nv = len(limbs[0]), len(vals[0])
+    nv = len(vals[0])
     P = mesh.size
     n_local = limbs[0][0].shape[0]
     for ops in [*limbs, *vals]:
@@ -506,12 +362,6 @@ def _dist_sort_impl(mesh, limbs, vals, capacity=None, exchange=None):
         # routing and stability tiebreaks use int32 positions
         raise ValueError(f"distributed sort supports < 2**31 total rows (got {n}): "
                          "int32 position tiebreaks")
-    if exchange not in (None,) + EXCHANGES:
-        raise ValueError("exchange must be one of None (auto), 'ragged', 'gather', "
-                         f"'pipelined'; got {exchange!r}")
-    if exchange == "pipelined" and (nk > 1 or nv > 1):
-        raise ValueError("pipelined exchange supports one key word and at most one value "
-                         "operand")
     if capacity is None:
         capacity = exchange_capacity(n_local, P)
     if capacity < n_local:
@@ -524,8 +374,7 @@ def _dist_sort_impl(mesh, limbs, vals, capacity=None, exchange=None):
         # degenerate mesh: the local stable sort in the padded layout
         ow, ov = _global_sort_fallback(mesh, limbs, vals, capacity, fills)
         return ow, ov, _counts_tensor(mesh, [n_local]), no
-    ow, ov, counts, overflow = _local_exchange(mesh, limbs, vals, capacity, sentinel,
-                                               exchange=exchange)
+    ow, ov, counts, overflow = _local_exchange(mesh, limbs, vals, capacity, sentinel)
     if overflow:
         # the replicated fallback gathers the whole input: it runs only here
         OVERFLOWS += 1
@@ -577,8 +426,7 @@ def _value_arg(mesh, values, n_slots):
     return vals, wrap
 
 
-def distributed_sort(keys, mesh, *, descending: bool = False, capacity: int | None = None,
-                     exchange: str | None = None):
+def distributed_sort(keys, mesh, *, descending: bool = False, capacity: int | None = None):
     """Sort ``keys`` (a :class:`Sharded` column on ``mesh`` or a global
     tensor, which is sharded first; or a list of equal-length columns,
     sorted lexicographically, primary first, and returned as a list).
@@ -586,36 +434,36 @@ def distributed_sort(keys, mesh, *, descending: bool = False, capacity: int | No
     Returns ``(sorted, counts, overflow)``: ``sorted`` is sharded with
     ``capacity`` rows a slot (default :func:`exchange_capacity`), slot s's
     first ``counts[s]`` rows valid; the concatenated valid prefixes are the
-    stable sort in total_cmp float order. ``descending=True`` reverses the
-    key order, equal keys keeping input order. If the exchange overflows
-    (only reachable through ``capacity=``) the result comes from a
-    replicated global sort laid out the same way, and ``overflow`` is
-    True. ``exchange``: ``"ragged"`` (default), ``"gather"`` or
-    ``"pipelined"``; the concatenated result is the same for each.
+    stable sort in total_cmp float order. The rows move between slots in
+    one exact-count exchange. ``descending=True`` reverses the key order,
+    equal keys keeping input order. If the exchange overflows (only
+    reachable through ``capacity=``) the result comes from a replicated
+    global sort laid out the same way, and ``overflow`` is True.
     """
     limbs, decode = _encode_key_arg(mesh, keys, descending)
-    ows, _, counts, overflow = _dist_sort_impl(mesh, limbs, [[] for _ in limbs], capacity,
-                                               exchange)
+    ows, _, counts, overflow = _dist_sort_impl(mesh, limbs, [[] for _ in limbs], capacity)
     return decode(ows), counts, overflow
 
 
 def distributed_sort_pairs(keys, values, mesh, *, descending: bool = False,
-                           capacity: int | None = None, exchange: str | None = None):
-    """Key/payload variant of :func:`distributed_sort` (stable). ``keys``
-    and ``values`` may each be column lists. Returns ``(sorted keys,
-    values, counts, overflow)``."""
+                           capacity: int | None = None):
+    """Key/payload variant of :func:`distributed_sort` (stable; the same
+    exchange carries the values beside the keys). ``keys`` and ``values``
+    may each be column lists. Returns ``(sorted keys, values, counts,
+    overflow)``."""
     limbs, decode = _encode_key_arg(mesh, keys, descending)
     vals, wrap = _value_arg(mesh, values, len(limbs))
-    ows, ovs, counts, overflow = _dist_sort_impl(mesh, limbs, vals, capacity, exchange)
+    ows, ovs, counts, overflow = _dist_sort_impl(mesh, limbs, vals, capacity)
     return decode(ows), wrap(ovs), counts, overflow
 
 
 def distributed_sort_limbs(limbs, values=None, *, mesh, descending: bool = False,
-                           capacity: int | None = None, exchange: str | None = None):
+                           capacity: int | None = None):
     """Raw multi-word variant: ``limbs`` is a list of big-endian rank words
     already in the port's signed rank space (e.g. ``keys.encode128``'s
-    int32 limbs). Returns ``(sorted limbs, values, counts, overflow)`` in
-    the padded per-slot layout of :func:`distributed_sort`."""
+    int32 limbs), through the same exchange. Returns ``(sorted limbs,
+    values, counts, overflow)`` in the padded per-slot layout of
+    :func:`distributed_sort`."""
     if not isinstance(limbs, (list, tuple)) or not limbs:
         raise ValueError("limbs must be a non-empty list of limb arrays")
     blocks = [local_blocks(mesh, w) for w in limbs]
@@ -625,7 +473,7 @@ def distributed_sort_limbs(limbs, values=None, *, mesh, descending: bool = False
     slot_limbs = [[~b[i] if descending else b[i] for b in blocks]
                   for i in range(len(mesh.local))]
     vals, wrap = _value_arg(mesh, values, len(slot_limbs))
-    ows, ovs, counts, overflow = _dist_sort_impl(mesh, slot_limbs, vals, capacity, exchange)
+    ows, ovs, counts, overflow = _dist_sort_impl(mesh, slot_limbs, vals, capacity)
     out = [Sharded(mesh, [~ws[k] if descending else ws[k] for ws in ows])
            for k in range(len(limbs))]
     return out, wrap(ovs), counts, overflow

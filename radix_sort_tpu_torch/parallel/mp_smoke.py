@@ -7,8 +7,7 @@ engine across the process boundary, checked against numpy oracles:
 
   1. ``distributed_sort_pairs`` on uniform keys and on duplicate-heavy keys
      (seven distinct values: stability decides the payload order, and runs
-     of equal keys split across processes), with the ragged and the
-     pipelined exchange.
+     of equal keys split across processes).
      Then one ``distributed_hash_join`` (a left join: unmatched rows and
      the padding masks of the received shards) and one
      ``distributed_hash_aggregate`` (sum, count and median by key: the
@@ -39,12 +38,12 @@ import numpy as np
 import torch
 
 
-def _check_sort(mesh, keys, vals, name, exchange=None):
+def _check_sort(mesh, keys, vals, name):
     """One cross-process distributed sort against the stable numpy sort."""
     from radix_sort_tpu_torch.parallel import dist_sort, runtime
 
     k, v, counts, overflow = dist_sort.distributed_sort_pairs(
-        torch.from_numpy(keys), torch.from_numpy(vals), mesh, exchange=exchange)
+        torch.from_numpy(keys), torch.from_numpy(vals), mesh)
     assert not bool(overflow), f"{name}: exchange overflow"
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(runtime.valid_rows(k, counts).cpu().numpy(), keys[order],
@@ -75,7 +74,6 @@ def run_smoke(coordinator: str, num_processes: int, process_id: int,
     step = (rng.integers(0, 7, size=n).astype(np.uint32) + 1) * np.uint32(0x24924924)
     _check_sort(mesh, uniform, vals, "uniform")
     _check_sort(mesh, step, vals, "step_dups")
-    _check_sort(mesh, step, vals, "pipelined", exchange="pipelined")
 
     # --- 1 (cont.). a left join and a GROUP BY across the boundary
     lk = rng.integers(0, 300, n).astype(np.uint32)

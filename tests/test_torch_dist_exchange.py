@@ -57,7 +57,7 @@ def ragged_exchange_by_cat(mesh, slot_ops, fills, slot_starts, capacity):
             got = recv[j]
             tail = torch.full((capacity - recv_n[d],), fill, dtype=got[0].dtype)
             outs[j].append(torch.cat(got + [tail]))
-    return outs, recv_n, overflow, sz
+    return outs, recv_n, overflow
 
 
 def _starts(case, p, n, s):
@@ -91,7 +91,7 @@ def test_landing_in_place_matches_list_then_cat(case, p):
     copies, peer = C.OVERLAPPED_COPIES, C.PEER_BYTES
     got = dist_sort._ragged_exchange(mesh, slot_ops, fills, starts, capacity)
     want = ragged_exchange_by_cat(mesh, slot_ops, fills, starts, capacity)
-    assert got[1:] == want[1:]  # counts, overflow, sizes
+    assert got[1:] == want[1:]  # counts, overflow
     assert got[2] == (case == "overflow")
     for g_slot, w_slot in zip(got[0], want[0]):
         for g, w in zip(g_slot, w_slot):

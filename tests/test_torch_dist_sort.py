@@ -7,8 +7,8 @@ inputs; the ``*_matches_jax_mesh`` cases hold the whole padded per-slot
 layout, the per-slot counts and the overflow flag bit for bit against the
 JAX distributed function on a virtual mesh of as many CPU devices (one
 shape per dtype, under ``jax.jit``, so each compiles once). The reference
-exchanges with its all-gather emulation there; the port's default is its
-exact-count exchange, and every exchange mode gives the same result.
+exchanges with its all-gather emulation there; the port has one exchange,
+the exact-count one, and lands the same layout.
 """
 
 import numpy as np
@@ -93,9 +93,10 @@ def _skew_cases(rng, n):
     yield "zipf", np.minimum(rng.zipf(1.3, size=n), 1 << 31).astype(np.uint32)
     yield "sorted_ascending", np.sort(rng.integers(0, 1 << 32, n, dtype=np.uint32))
     yield "sorted_descending", np.sort(rng.integers(0, 1 << 32, n, dtype=np.uint32))[::-1].copy()
+    yield "all_sentinel", np.full(n, 0xFFFFFFFF, np.uint32)  # every key equals the padding
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(7))
 def test_skewed_distributions_sort_stably(rng, case):
     """Duplicate-heavy keys sort (keys alone and with a payload) without
     overflowing the provisioned capacity; equal keys keep input order
@@ -149,61 +150,13 @@ def test_forced_overflow_falls_back_exactly():
     np.testing.assert_array_equal(collect(v, counts), np.arange(n, dtype=np.uint32))
 
 
-@pytest.mark.parametrize("case", ["uniform", "dup_heavy", "all_equal"])
-def test_pipelined_exchange_stability_and_skew(rng, case):
-    n = P * 2048
-    keys = {"uniform": rng.integers(0, 1 << 32, n, dtype=np.uint32),
-            "dup_heavy": rng.integers(0, 3, n).astype(np.uint32),
-            "all_equal": np.full(n, 0xFFFFFFFF, np.uint32)}[case]
-    vals = np.arange(n, dtype=np.uint32)
-    k, v, counts, overflow = tds.distributed_sort_pairs(t(keys), t(vals), tmesh(),
-                                                        exchange="pipelined")
-    assert not bool(overflow)
-    order = stable(keys)
-    np.testing.assert_array_equal(collect(k, counts), keys[order])
-    np.testing.assert_array_equal(collect(v, counts), vals[order])
-
-
-def test_pipelined_keys_only(rng):
-    x = rng.integers(-1000, 1000, P * 1024).astype(np.int32)
-    out, counts, overflow = tds.distributed_sort(t(x), tmesh(), exchange="pipelined")
-    assert not bool(overflow)
-    np.testing.assert_array_equal(collect(out, counts), np.sort(x, kind="stable"))
-
-
-@pytest.mark.parametrize("dtype", [np.uint32, np.float64])
-def test_exchange_modes_agree(rng, dtype):
-    """Every exchange gives the same concatenated result; the exact-count
-    and all-gather exchanges give the same per-slot layout too."""
-    n = P * 1024
-    x = column(rng, dtype, n) if dtype != np.uint32 else rng.integers(0, 5, n).astype(dtype)
-    v = rng.standard_normal(n).astype(np.float32)
-    res = {ex: tds.distributed_sort_pairs(t(x), t(v), tmesh(), exchange=ex)
-           for ex in ("ragged", "gather", "pipelined")}
-    ragged = res["ragged"]
-    for ex, (k, vals, counts, overflow) in res.items():
-        assert not bool(overflow), ex
-        np.testing.assert_array_equal(bits(collect(k, counts)), bits(collect(ragged[0],
-                                                                             ragged[2])))
-        np.testing.assert_array_equal(bits(collect(vals, counts)),
-                                      bits(collect(ragged[1], ragged[2])))
-    for a, b in zip(res["ragged"][:2], res["gather"][:2]):
-        np.testing.assert_array_equal(bits(runtime.gather_rows(a).numpy()),
-                                      bits(runtime.gather_rows(b).numpy()))
-    assert torch.equal(res["ragged"][2], res["gather"][2])
-
-
 def test_bad_arguments_raise(rng):
     mesh = tmesh()
     x = t(rng.integers(0, 100, P * 128, dtype=np.uint32))
-    with pytest.raises(ValueError, match="exchange must be"):
-        tds.distributed_sort(x, mesh, exchange="gahter")
     with pytest.raises(ValueError, match="share a length"):
         tds.distributed_sort_pairs(x, t(np.zeros(P * 64, np.uint32)), mesh)
     with pytest.raises(ValueError, match="capacity"):
         tds.distributed_sort(x, mesh, capacity=64)
-    with pytest.raises(ValueError, match="pipelined exchange supports"):
-        tds.distributed_sort([x, x], mesh, exchange="pipelined")
     with pytest.raises(ValueError, match="equal blocks"):
         tds.distributed_sort(t(np.zeros(P * 128 + 1, np.uint32)), mesh)
     # 2**31 rows (stride-0 views, nothing allocated): int32 position tiebreaks
@@ -264,16 +217,6 @@ class TestMultiLimb:
             tds.distributed_sort_limbs([torch.zeros(8, dtype=torch.uint32)], mesh=tmesh())
         with pytest.raises(ValueError, match="non-empty"):
             tds.distributed_sort_limbs([], mesh=tmesh())
-
-    def test_gather_exchange_composite(self, rng):
-        n = P * 512
-        a = rng.integers(0, 2, n).astype(np.uint32)
-        b = rng.integers(0, 1 << 16, n).astype(np.uint16)
-        cols, counts, overflow = tds.distributed_sort([t(a), t(b)], tmesh(), exchange="gather")
-        assert not bool(overflow)
-        order = np.lexsort((b, a))
-        np.testing.assert_array_equal(collect(cols[0], counts), a[order])
-        np.testing.assert_array_equal(collect(cols[1], counts), b[order])
 
 
 @pytest.mark.parametrize("nk", [1, 2])
@@ -352,7 +295,7 @@ def _jax_pairs(p, **kw):
 @pytest.mark.parametrize("dtype,kw", [
     (np.uint32, {}),
     (np.uint64, {"descending": True}),
-    (np.float32, {"exchange": "pipelined"}),
+    (np.float32, {}),
     (np.uint32, {"capacity": 1024}),
 ])
 def test_sort_pairs_matches_jax_mesh(rng, dtype, kw):

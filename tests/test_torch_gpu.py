@@ -591,14 +591,13 @@ def test_distributed_on_a_four_slot_card_mesh(cuda):
     n = 4 * 4096
     k = torch.from_numpy(rng.integers(0, 1 << 64, n, dtype=np.uint64))
     v = torch.from_numpy(rng.standard_normal(n))
-    for ex in ("ragged", "gather", "pipelined"):
-        got = dist_sort.distributed_sort_pairs(k.cuda(), v.cuda(), card, exchange=ex)
-        want = dist_sort.distributed_sort_pairs(k, v, cpu, exchange=ex)
-        assert got[0].blocks[0].is_cuda and not bool(got[3])
-        for g, w in zip(got[:2], want[:2]):
-            assert torch.equal(runtime.gather_rows(g).cpu().view(torch.int64),
-                               runtime.gather_rows(w).view(torch.int64))
-        assert torch.equal(got[2].cpu(), want[2])
+    got = dist_sort.distributed_sort_pairs(k.cuda(), v.cuda(), card)
+    want = dist_sort.distributed_sort_pairs(k, v, cpu)
+    assert got[0].blocks[0].is_cuda and not bool(got[3])
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(runtime.gather_rows(g).cpu().view(torch.int64),
+                           runtime.gather_rows(w).view(torch.int64))
+    assert torch.equal(got[2].cpu(), want[2])
 
     lk = torch.from_numpy(rng.integers(0, 3000, n).astype(np.uint32))
     rk = torch.from_numpy(rng.integers(0, 2000, n).astype(np.uint32))
