@@ -88,7 +88,13 @@ started together) and drives the port's paths:
     without its exchange range), peak memory and K2 launches; D1's
     one-word run starts are timed by searchsorted and by the compare-sum;
     then K2 is held bit-exact against its plain version
-    at every slot's expansion;
+    at every slot's expansion; every final step of the path merges its
+    received runs (``csrc/merge_runs.cu``, launches read as K2's; a path
+    that merges and never launched fails), and the merge kernel is held
+    bit-exact against its plain version at 250M (int64, int64) rows in 4
+    Zipf-like runs and timed beside its bound, its plain version and a
+    stable ``torch.sort`` of the runs' concatenation (the port never calls
+    that);
   * ``DistTable`` on the same 4-slot mesh at TPC-H SF10 (phase 12), over
     phase 9's tables sharded by ``DistTable.from_table``: DT1 Q1 (a filter
     and the distributed aggregate), DT2 Q3 (three filters, two
@@ -103,7 +109,8 @@ started together) and drives the port's paths:
     replicated fallback (none may be taken) read around the call; one
     ``explain()`` shows the broadcast ``join[lookup on ...]``. Each is
     timed as phase 11 times its workloads, then K2 is held bit-exact
-    against its plain version at every slot's expansion;
+    against its plain version at every slot's expansion; its merge
+    launches are read as phase 11's;
   * the demo CLI and the host modules (phase 13): (a) the reference's
     sweep through ``demo.main`` -- (u32,u32) and (u64,u64) rows at
     0.5-4.0 GB (500M u32 rows at the top) with the comparator and the
@@ -165,7 +172,8 @@ from radix_sort_tpu_torch.examples import table_demo as ex_table
 from radix_sort_tpu_torch.native import csvio
 from radix_sort_tpu_torch.native import host as nhost
 from radix_sort_tpu_torch.table import Table
-from radix_sort_tpu_torch.ops import expand, extract, pallas_sort, run_ends, sample_sort
+from radix_sort_tpu_torch.ops import (expand, extract, merge_runs, pallas_sort, run_ends,
+                                      sample_sort)
 from radix_sort_tpu_torch.parallel import collectives as rcoll
 from radix_sort_tpu_torch.parallel import dist_asof as rda
 from radix_sort_tpu_torch.parallel import dist_query as rdq
@@ -2605,6 +2613,77 @@ def distributed_path(gen):
     return {**k2_join, **k2_ops}, join_launches + op_launches, joins, re_launches
 
 
+MR_ROWS = D1_ROWS  # a card's rows in the 4-card sort cell
+MR_RUNS = (61_000_000, 64_500_000, 62_000_000)  # and the rest: 4 runs of unequal size
+
+
+def _zipf_runs(gen, lengths):
+    """Runs back to back, each sorted: int64 keys with P(k >= x) = x**-0.1
+    (1, 2, 3, ...: long runs of equal keys in every run)."""
+    u = torch.rand(sum(lengths), device=DEV, generator=gen, dtype=torch.float64)
+    keys = u.clamp_(min=1e-300).pow_(-10.0).clamp_(max=2.0**62).to(torch.int64)
+    del u
+    at = 0
+    for n in lengths:
+        keys[at:at + n] = torch.sort(keys[at:at + n]).values
+        at += n
+    return keys
+
+
+def merge_at_cell_size(gen):
+    """The merge kernel at a card's final step in the 4-card sort cell:
+    MR_ROWS (int64 key, int64 payload) rows in 4 Zipf-like runs, bit-exact
+    against its plain version into outputs poisoned with 0x5A5A5A5A (rows
+    past the runs must stay so), then timed beside its bound (each operand
+    read and written once), the plain version and a stable torch.sort of
+    the concatenation with the payload gathered by its indices."""
+    lengths = list(MR_RUNS) + [MR_ROWS - sum(MR_RUNS)]
+    word = _zipf_runs(gen, lengths)
+    vals = torch.randint(-2**62, 2**62, (MR_ROWS,), device=DEV, generator=gen)
+    cols = [word, vals]
+    outs = [torch.full((MR_ROWS + 2,), POISON, dtype=torch.int32, device=DEV)
+            .repeat_interleave(2).view(torch.int64) for _ in cols]
+    before = merge_runs.LAUNCHES
+    merge_runs.launch(word, lengths, cols, outs)
+    torch.cuda.synchronize()
+    check(merge_runs.LAUNCHES == before + 1, "merge at the cell size: not one launch")
+    ref = merge_runs.merge_runs_plain(word, lengths, cols, [0, 0], MR_ROWS)
+    for o, r, what in zip(outs, ref, ("keys", "payload")):
+        check(torch.equal(o[:MR_ROWS], r), f"merge at the cell size: {what} differ from plain")
+        check(bool((o[MR_ROWS:].view(torch.int32) == POISON).all()),
+              f"merge at the cell size: {what} written past the runs")
+    del ref
+
+    def library():
+        srt = torch.sort(word, stable=True)
+        return srt.values, vals[srt.indices]
+
+    mk, mp, ml = interleaved_ms(lambda: merge_runs.launch(word, lengths, cols, outs),
+                                lambda: merge_runs.merge_runs_plain(word, lengths, cols, [0, 0],
+                                                                    MR_ROWS),
+                                library)
+    nbytes = 32 * MR_ROWS
+    bound = nbytes / HBM_BYTES_PER_MS
+    log(f"merge at the cell size: {MR_ROWS:,} (int64, int64) rows in runs of {lengths}: kernel "
+        f"{mk:.3f} ms ({nbytes / mk / 1e6:.0f} GB/s), bound {bound:.3f} ms ({100 * bound / mk:.0f}%"
+        f" of it), plain {mp:.3f} ms, stable torch.sort + gather {ml:.3f} ms; bit-exact")
+    return {"shape": f"{MR_ROWS:,} (int64, int64) rows in 4 runs {lengths}", "rows": MR_ROWS,
+            "ms": mk, "plain_ms": mp, "bound_ms": bound, "library_ms": ml}
+
+
+def merges_of(path, run):
+    """Run ``run()`` with the merge kernel's launches and the distributed
+    sort's merged final steps counted; a path that merged and never
+    launched the kernel fails. Returns (run's result, launches)."""
+    launches, merges = merge_runs.LAUNCHES, rdsort.FINAL_MERGES
+    out = run()
+    launches, merges = merge_runs.LAUNCHES - launches, rdsort.FINAL_MERGES - merges
+    check(not merges or launches, f"the {path} path merged {merges} times and never launched "
+          "the merge kernel")
+    log(f"{path} path: {merges} final steps merged, merge kernel calls {launches}")
+    return out, launches
+
+
 # ---------------------------------------------------------------- phase 12
 
 # DistTable on the same 4-slot mesh of the card, over phase 9's tables
@@ -3714,18 +3793,23 @@ def main():
     # the distributed layer on a 4-slot mesh on one card (phase 11)
     torch.cuda.empty_cache()
     expand.LAUNCHES = 0  # each distributed call's launches are read around it
-    dist_k2, k2_dist, dist_joins, re_dist = distributed_path(gen)
+    (dist_k2, k2_dist, dist_joins, re_dist), mr_dist = merges_of(
+        "distributed", lambda: distributed_path(gen))
+    check(mr_dist > 0, "the distributed path never launched the merge kernel")
     check(k2_dist > 0, "the distributed path never launched the expand kernel")
     check(re_dist > 0, "the distributed path never launched the run-ends kernel")
     log(f"distributed path: expand kernel calls {k2_dist}, run-ends kernel calls {re_dist}")
     k2_dist_rows, k2_err5 = k2_at_shapes(dist_k2)
     re_dist_rows = run_ends_at_shapes("dist", dist_joins)
     del dist_k2, dist_joins
+    torch.cuda.empty_cache()
+    mr_row = merge_at_cell_size(gen)
 
     # DistTable on the 4-slot mesh at TPC-H SF10 (phase 12)
     torch.cuda.empty_cache()
     expand.LAUNCHES = 0  # each DistTable call's launches are read around it
-    dt_work, dt_k2, k2_dt, re_dt = dist_table_path(gen)
+    (dt_work, dt_k2, k2_dt, re_dt), mr_dt = merges_of("DistTable",
+                                                      lambda: dist_table_path(gen))
     check(k2_dt > 0, "the DistTable path never launched the expand kernel")
     check(re_dt > 0, "the DistTable path never launched the run-ends kernel")
     log(f"DistTable path: expand kernel calls {k2_dt}, run-ends kernel calls {re_dt}")
@@ -3822,6 +3906,19 @@ def main():
         "shape": f"{re_big['shape']}: the largest union; every SQL union and each other "
                  "path's largest in calls",
         "calls": re_rows,
+    }, {
+        "name": "merge_sorted_runs",
+        "route": "cuda",
+        "source": "radix_sort_tpu_torch/csrc/merge_runs.cu",
+        "replaces": None,  # the JAX package sorts the received runs again with lax.sort
+        "launches": mr_dist + mr_dt,
+        "launches_by_path": {"dist": mr_dist, "dist_table": mr_dt},
+        "ms": mr_row["ms"],
+        "plain_ms": mr_row["plain_ms"],
+        "bound_ms": mr_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": mr_row["library_ms"],  # stable torch.sort + gather, never called
+        "shape": mr_row["shape"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

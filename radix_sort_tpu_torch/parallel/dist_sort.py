@@ -14,13 +14,17 @@ Counterpart of ``radix_sort_tpu/parallel/dist_sort.py``, the same algorithm
   3. one exchange, exact-count: each slot's per-destination runs, each
      landing at its source-major offset in the destination's padded buffer
      (:func:`collectives.all_to_all_into`);
-  4. a final stable local sort of the received rows; padding stays at the
-     tail (sentinel keys, zero values).
+  4. the received rows put in order: they are P runs, one from each source
+     slot in source order, each sorted, so a stable P-way merge whose ties
+     go to the lower run (``ops/merge_runs.py``, one kernel launch on a
+     card) gives the stable sort of them. Keys wider than 64 bits (e.g.
+     ``keys.encode128``'s four limbs) are sorted again instead. Padding
+     stays at the tail (sentinel keys, zero values).
 
 Equal keys keep global input order: routing orders ties by source
-position, the exchange lands runs in source-slot order, and both local
-sorts are stable. Positions are int32 ``slot * n_local + i``, so fewer than
-2**31 rows in all.
+position, the exchange lands runs in source-slot order, the local sort is
+stable and the merge gives ties to the lower run. Positions are int32
+``slot * n_local + i``, so fewer than 2**31 rows in all.
 
 The output is range-ragged: slot s holds ``counts[s]`` valid rows padded to
 a per-slot capacity, and the concatenated valid prefixes (in slot order)
@@ -35,19 +39,23 @@ as the reference's unsigned maxima after decoding; the run starts are read
 with ``searchsorted`` for one-word keys (the same counts as the
 reference's compare-sum); sample positions are computed in int64 (the
 reference's int32 ``arange(m) * n_local`` wraps once ``m * n_local``
-reaches 2**31, e.g. at 62.5M rows a slot on 4 slots); and the overflow
+reaches 2**31, e.g. at 62.5M rows a slot on 4 slots); the overflow
 fallback is a host branch on one synchronised flag where the reference
-uses ``lax.cond``. The reference's ``exchange`` option is not ported: its
-``"gather"`` mode is its fallback off the TPU, and its ``"pipelined"``
-stripes overlap XLA's asynchronous collectives with the next stripe's
-sort; neither has a counterpart here.
+uses ``lax.cond``; and step 4 merges the received runs where the
+reference sorts them again with ``lax.sort``, for the same rows (only keys
+over 64 bits take a sort). The reference's ``exchange`` option is not
+ported: its ``"gather"`` mode is its fallback off the TPU, and its
+``"pipelined"`` stripes overlap XLA's asynchronous collectives with the
+next stripe's sort; neither has a counterpart here.
 
 Tracing: the phases run inside the ``torch.profiler`` ranges
 :data:`LOCAL_SORT_RANGE`, :data:`SPLITTERS_RANGE` and
 :data:`FINAL_SORT_RANGE` (the exchange inside
-``collectives.EXCHANGE_RANGE``); :data:`CALLS` counts the distributed
-sorts run, :data:`OVERFLOWS` those that overflowed into the replicated
-fallback, and :data:`HOST_READS` the syncing host reads of this module's
+``collectives.EXCHANGE_RANGE``; the merge runs in the last);
+:data:`CALLS` counts the distributed sorts run, :data:`FINAL_MERGES` and
+:data:`FINAL_SORTS` the final steps that merged and that sorted,
+:data:`OVERFLOWS` the sorts that overflowed into the replicated fallback,
+and :data:`HOST_READS` the syncing host reads of this module's
 functions (one a sort: the exchange sizes).
 """
 
@@ -56,12 +64,16 @@ from __future__ import annotations
 import torch
 
 from radix_sort_tpu_torch import keys as K
+from radix_sort_tpu_torch.ops import merge_runs as MR
 from radix_sort_tpu_torch.ops import query as Q
+from radix_sort_tpu_torch.ops._cosort import pack_keys
 from radix_sort_tpu_torch.parallel import collectives as C
 from radix_sort_tpu_torch.parallel.runtime import Sharded, local_blocks
 
 __all__ = [
     "CALLS",
+    "FINAL_MERGES",
+    "FINAL_SORTS",
     "FINAL_SORT_RANGE",
     "HOST_READS",
     "LOCAL_SORT_RANGE",
@@ -77,6 +89,8 @@ LOCAL_SORT_RANGE = "distributed local sort"
 SPLITTERS_RANGE = "distributed splitters"
 FINAL_SORT_RANGE = "distributed final sort"
 CALLS = 0
+FINAL_MERGES = 0
+FINAL_SORTS = 0
 OVERFLOWS = 0
 HOST_READS = 0
 
@@ -207,9 +221,10 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
     n_local). Every size comes from the gathered start matrix, so senders
     and receivers clamp identically even when a capacity override forces
     overflow. Returns ``(received ops per local slot, received count of
-    every slot, overflow)``; slot d's buffer of ``capacity`` rows is
-    allocated first and holds the runs of sources 0, 1, ... back to back,
-    each landed at its offset, then the fill."""
+    every slot, overflow, run sizes per local slot)``; slot d's buffer of
+    ``capacity`` rows is allocated first and holds the runs of sources 0,
+    1, ... back to back, each landed at its offset (run s of ``runs[j][s]``
+    rows, a prefix of source s's sorted run), then the fill."""
     P = mesh.size
     n_local = slot_ops[0][0].shape[0]
     starts = _read(C.all_gather(mesh, slot_starts).reshape(P, P))
@@ -240,14 +255,34 @@ def _ragged_exchange(mesh, slot_ops, fills, slot_starts, capacity):
             columns.append((pieces, bufs))
         # the runs are clamped back to back, so each lands at its offset
         C.all_to_all_into(mesh, columns, sz, oo)
-    return outs, recv_n, overflow
+    runs = [[sz[s][d] for s in range(P)] for d in mesh.local]
+    return outs, recv_n, overflow, runs
 
 
-def _final_sort(ops, nk, n_valid, fills):
-    """Stable sort of the valid prefix by its nk key operands; the padding
-    tail (sentinel keys, zero values) stays behind it, as the reference's
-    sort with a leading invalid flag leaves it."""
+def _merge_word(words):
+    """One int32 or int64 word ordering like the key words ``words``
+    lexicographically, or None when they hold more than 64 bits."""
+    w = pack_keys(words)
+    if w is None or w.dtype in MR.KEY_DTYPES:
+        return w
+    return w.to(torch.int32) if w.dtype in (torch.int8, torch.int16) else None
+
+
+def _final_sort(ops, nk, runs, fills):
+    """The received valid prefix in order by its nk key operands: ``runs``
+    sorted runs back to back, merged stably (ties to the lower run, which
+    is the stable sort of the whole, as the runs lie in source order) when
+    the key words hold at most 64 bits, else sorted again. The padding tail
+    (sentinel keys, zero values) stays behind it, as the reference's sort
+    with a leading invalid flag leaves it."""
+    global FINAL_MERGES, FINAL_SORTS
+    n_valid = sum(runs)
     with torch.profiler.record_function(FINAL_SORT_RANGE):
+        word = _merge_word([x[:n_valid] for x in ops[:nk]])
+        if word is not None and len(runs) <= MR.MAX_RUNS:
+            FINAL_MERGES += 1
+            return MR.merge_runs(word, runs, ops, fills, ops[0].shape[0])
+        FINAL_SORTS += 1
         srt = Q._stable_sort([x[:n_valid] for x in ops], nk)
     return [torch.cat([s, x[n_valid:]]) for s, x in zip(srt, ops)]
 
@@ -275,8 +310,8 @@ def _local_exchange(mesh, key_ops, val_ops, capacity, sentinel, splitters=None):
                       for ops, r in zip(sorted_ops, mesh.local)]
         else:
             starts = [_key_starts(ops[0], splitters) for ops in sorted_ops]
-    recv, counts, overflow = _ragged_exchange(mesh, sorted_ops, fills, starts, capacity)
-    recv = [_final_sort(ops, nk, counts[d], fills) for ops, d in zip(recv, mesh.local)]
+    recv, counts, overflow, runs = _ragged_exchange(mesh, sorted_ops, fills, starts, capacity)
+    recv = [_final_sort(ops, nk, r, fills) for ops, r in zip(recv, runs)]
     return [x[:nk] for x in recv], [x[nk:] for x in recv], counts, overflow
 
 

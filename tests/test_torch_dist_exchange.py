@@ -91,8 +91,10 @@ def test_landing_in_place_matches_list_then_cat(case, p):
     copies, peer = C.OVERLAPPED_COPIES, C.PEER_BYTES
     got = dist_sort._ragged_exchange(mesh, slot_ops, fills, starts, capacity)
     want = ragged_exchange_by_cat(mesh, slot_ops, fills, starts, capacity)
-    assert got[1:] == want[1:]  # counts, overflow
+    assert got[1:3] == want[1:]  # counts, overflow
     assert got[2] == (case == "overflow")
+    # the run sizes: each slot's count in source order, back to back
+    assert [sum(r) for r in got[3]] == got[1] and all(len(r) == p for r in got[3])
     for g_slot, w_slot in zip(got[0], want[0]):
         for g, w in zip(g_slot, w_slot):
             assert g.dtype == w.dtype and g.shape == (capacity,)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import radix_sort_tpu_torch as rst
-from radix_sort_tpu_torch.ops import expand, extract, run_ends
+from radix_sort_tpu_torch.ops import expand, extract, merge_runs, run_ends
 from radix_sort_tpu_torch.ops import query as rq
 from radix_sort_tpu_torch.utils import timing
 
@@ -267,6 +267,123 @@ def test_merge_rank_pair_on_card_launches_run_ends(cuda, monkeypatch):
     assert run_ends.LAUNCHES == before + 1
     for g, c in zip(gpu, cpu):
         assert g.is_cuda and torch.equal(g.cpu(), c)
+
+
+def _sorted_runs_on_card(lengths, dtype, seed):
+    """P runs back to back on the card, each sorted: Zipf-like keys (a
+    heavy tail over 1, 2, 3, ...: long runs of equal keys in every run)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = sum(lengths)
+    u = torch.rand(n, device="cuda", generator=g, dtype=torch.float64).clamp_(min=1e-300)
+    keys = u.pow(-10.0).clamp_(max=2.0**30).to(dtype)  # P(k >= x) = x**-0.1
+    for r, (a, b) in enumerate(zip([0] + list(np.cumsum(lengths)), np.cumsum(lengths))):
+        keys[a:b] = torch.sort(keys[a:b]).values
+    return keys
+
+
+def _merge_on_card(word, lengths, cols):
+    """The kernel into outputs poisoned with 0x5A bytes (two rows past n
+    must stay poisoned) against the plain version, bit for bit."""
+    n = sum(lengths)
+    outs = [torch.full((n + 2,), 0x5A, dtype=torch.uint8, device="cuda")
+            .repeat_interleave(c.element_size()).view(c.dtype) for c in cols]
+    before = merge_runs.LAUNCHES
+    merge_runs.launch(word, lengths, cols, outs)
+    assert merge_runs.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    ref = merge_runs.merge_runs_plain(word, lengths, cols, [0] * len(cols), n + 2)
+    for o, r in zip(outs, ref):
+        ob = o.view(torch.uint8).view(-1, o.element_size())
+        assert torch.equal(ob[:n], r.view(torch.uint8).view(-1, o.element_size())[:n])
+        assert bool((ob[n:] == 0x5A).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 8, 64])
+@pytest.mark.parametrize("key", [torch.int64, torch.int32])
+def test_merge_kernel_matches_plain(cuda, p, key):
+    """2**20 + 13 rows in p runs (one empty, one long), every column width
+    (the key itself among them, bool, int8, int16, int32, float32, int64,
+    float64): each column bit for bit as the plain merge, nothing written
+    past the rows; one launch a call."""
+    rng = np.random.default_rng(p)
+    n = (1 << 20) + 13
+    w = rng.random(p) + 0.1
+    if p > 1:
+        w[0], w[-1] = 0.0, 3.0
+    lengths = [int(x) for x in n * w / w.sum()]
+    lengths[-1] += n - sum(lengths)
+    word = _sorted_runs_on_card(lengths, key, seed=p)
+    g = torch.Generator(device="cuda").manual_seed(p + 1)
+    cols = [word, torch.rand(n, device="cuda", generator=g) < 0.5,
+            torch.randint(-128, 128, (n,), dtype=torch.int8, device="cuda", generator=g),
+            torch.randint(-2**15, 2**15, (n,), dtype=torch.int16, device="cuda", generator=g),
+            torch.arange(n, dtype=torch.int32, device="cuda"),
+            torch.rand(n, device="cuda", generator=g),
+            torch.randint(-2**62, 2**62, (n,), device="cuda", generator=g),
+            torch.rand(n, device="cuda", generator=g, dtype=torch.float64)]
+    _merge_on_card(word, lengths, cols)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_at_the_cell_size(cuda):
+    """250M (int64 key, int64 payload) rows in 4 Zipf-like runs of unequal
+    size, a card's final step in the 4-card sort cell."""
+    n = 250_000_000
+    lengths = [61_000_000, 64_500_000, 62_000_000, n - 187_500_000]
+    word = _sorted_runs_on_card(lengths, torch.int64, seed=250)
+    vals = torch.randint(-2**62, 2**62, (n,), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(7))
+    _merge_on_card(word, lengths, [word, vals])
+
+
+@pytest.mark.cuda
+def test_merge_kernel_refuses_what_it_cannot_take(cuda):
+    word = torch.arange(1024, dtype=torch.int64, device="cuda")
+    out = torch.empty_like(word)
+    for bad, what in (((word.double(), [1024], [word], [out]), "int32 or int64"),
+                      ((word, [512, 512], [word.to(torch.complex64)],
+                        [out.to(torch.complex64)]), "real"),
+                      ((word, [256, 256], [word[::2]], [out[:512]]), "contiguous"),
+                      ((word, [512, 512], [word], [out.int()]), "bytes a row"),
+                      ((word, [15] * 65, [word], [out]), "at most 64 runs")):
+        with pytest.raises(ValueError, match=what):
+            merge_runs.launch(*bad)
+    # the C entry refuses a key word off its alignment
+    lens = (merge_runs.ctypes.c_longlong * 2)(512, 511)
+    src = (merge_runs.ctypes.c_void_p * 1)(word.data_ptr())
+    dst = (merge_runs.ctypes.c_void_p * 1)(out.data_ptr())
+    width = (merge_runs.ctypes.c_int * 1)(8)
+    bounds = torch.empty(64, dtype=torch.int64, device="cuda")
+    err = merge_runs._kernel()(word.data_ptr() + 4, 8, lens, 2, src, dst, width, 1, -1, 256,
+                               merge_runs.GROUP, bounds.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_distributed_sort_merges_once_a_slot(cuda, monkeypatch):
+    """On a 4-slot card mesh every final step merges in one kernel launch,
+    never in the plain version, and the sort matches the CPU mesh's."""
+    from radix_sort_tpu_torch.parallel import dist_sort, runtime
+
+    def never(*args):
+        raise AssertionError("the CUDA path reached the plain merge")
+
+    rng = np.random.default_rng(21)
+    n = 4 * 50_000
+    k = torch.from_numpy(np.minimum(rng.zipf(1.1, n), 2**40).astype(np.uint64))
+    v = torch.from_numpy(rng.integers(0, 1 << 64, n, dtype=np.uint64))
+    want = dist_sort.distributed_sort_pairs(k, v, runtime.data_mesh(4, device="cpu"))
+    monkeypatch.setattr(merge_runs, "merge_runs_plain", never)
+    launches, merges = merge_runs.LAUNCHES, dist_sort.FINAL_MERGES
+    got = dist_sort.distributed_sort_pairs(k.cuda(), v.cuda(), runtime.data_mesh(4, device="cuda"))
+    assert merge_runs.LAUNCHES - launches == 4 and dist_sort.FINAL_MERGES - merges == 4
+    for g, w in zip(got[:2], want[:2]):
+        for gb, wb in zip(g.blocks, w.blocks):
+            assert torch.equal(gb.cpu().view(torch.int64), wb.view(torch.int64))
+    assert torch.equal(got[2].cpu(), want[2])
 
 
 @pytest.mark.cuda
