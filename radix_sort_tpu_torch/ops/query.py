@@ -22,7 +22,9 @@ bit-identical to the reference's:
     group id, or differences of running sums compacted at group ends.
     ``hash_aggregate_levels`` serves every ROLLUP level from one sort.
     Float sums are exact only to ULP(group sum): their summation order is
-    the scatter's.
+    the scatter's. Beside the reference's aggregations the port has the
+    sample statistics of :data:`SAMPLE_AGGREGATIONS` (CORR over a pair of
+    columns among them), which the JAX package lacks.
 
 All outputs are (padded tensors..., count[, overflow]), with count and
 overflow as 0-dim tensors on the input's device: slicing the first
@@ -39,17 +41,24 @@ and wrap, as the reference's do.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from radix_sort_tpu_torch import keys as K
 from radix_sort_tpu_torch.ops import expand, run_ends
-from radix_sort_tpu_torch.ops._cosort import cosort
+from radix_sort_tpu_torch.ops._cosort import _groups, cosort
 from radix_sort_tpu_torch.ops.expand import expand_offsets
 
 __all__ = [
     "AGGREGATIONS",
+    "AGG_CALLS",
+    "AGG_KEY_PASSES",
+    "AGG_RANGE",
     "COMBINABLE_AGGREGATIONS",
     "LEVEL_AGGREGATIONS",
+    "PAIR_AGGREGATIONS",
+    "SAMPLE_AGGREGATIONS",
     "append_unmatched_right",
     "band_join",
     "expand_offsets",
@@ -71,6 +80,14 @@ __all__ = [
 ]
 
 JOIN_HOWS = ("inner", "left", "right", "full", "semi", "anti")
+
+# the profiler range every top-level aggregate call runs in (hash_aggregate,
+# hash_aggregate_levels); AGG_CALLS counts those calls, AGG_KEY_PASSES the
+# stable 64-bit sort passes their key sorts issue (one per 64 bits of key
+# words: ``_cosort``'s groups). Neither count syncs the host.
+AGG_RANGE = "query aggregate"
+AGG_CALLS = 0
+AGG_KEY_PASSES = 0
 
 ZERO_LIMB = -(1 << 31)  # the port's image of the reference's zero limb
 _INT32_MAX = (1 << 31) - 1
@@ -264,6 +281,15 @@ AGGREGATIONS = (
 # ("quantile:0.5" == "median"). "quantile_cont:<q>" interpolates linearly
 # between the two bracketing order statistics (PERCENTILE_CONT), in float64.
 
+# the port's sample statistics, which the JAX package lacks: sample variance
+# and standard deviation (divisor n - 1) and Pearson's correlation of a pair
+# of columns, each in float64 and NaN where undefined (a group of fewer than
+# 2 rows; for corr, a column constant over the group). Their value operand
+# may end in a bool column: rows where it is False are skipped (SQL NULLs).
+SAMPLE_AGGREGATIONS = ("var_samp", "std_samp", "corr")
+# aggregations whose value operand is a pair of columns (x, y)
+PAIR_AGGREGATIONS = ("corr",)
+
 # aggregations whose per-shard partials combine with a plain reduction
 COMBINABLE_AGGREGATIONS = ("sum", "count", "min", "max", "mean", "any", "all")
 # aggregations computable per prefix level from one shared full-key sort
@@ -295,12 +321,27 @@ def quantile_is_cont(agg):
 
 
 def valid_agg(agg):
-    return agg in AGGREGATIONS or quantile_q(agg) is not None
+    return agg in AGGREGATIONS or agg in SAMPLE_AGGREGATIONS or quantile_q(agg) is not None
 
 
 def _check_agg(agg):
     if not valid_agg(agg):
-        raise ValueError(f"agg must be one of {AGGREGATIONS} or 'quantile:<q>', got {agg!r}")
+        raise ValueError(f"agg must be one of {AGGREGATIONS + SAMPLE_AGGREGATIONS} or "
+                         f"'quantile:<q>', got {agg!r}")
+
+
+def _operand(agg, value):
+    """The columns of an aggregation's value operand: one tensor, or for a
+    sample statistic a tuple (x[, y][, keep])."""
+    if agg in SAMPLE_AGGREGATIONS and isinstance(value, (list, tuple)):
+        width = 2 if agg in PAIR_AGGREGATIONS else 1
+        if len(value) not in (width, width + 1):
+            raise ValueError(f"{agg} takes {'(x, y)' if width == 2 else 'x'} and an optional "
+                             f"bool keep column, got {len(value)} columns")
+        return tuple(value)
+    if agg in PAIR_AGGREGATIONS:
+        raise ValueError(f"{agg} takes a pair of columns (x, y)")
+    return (value,)
 
 
 def _mean_dt(dt):
@@ -313,6 +354,8 @@ def _out_dt(agg, dt):
     the value dtype for ``quantile_cont`` and a bool ``sum``; ROADMAP.md)."""
     if agg in ("count", "count_distinct", "argmin", "argmax"):
         return torch.int32
+    if agg in SAMPLE_AGGREGATIONS:
+        return torch.float64
     if agg in ("mean", "var", "std"):
         return _mean_dt(dt)
     if agg in ("any", "all"):
@@ -428,6 +471,24 @@ def _nonzero(x):
     return _signed(x) != 0
 
 
+@contextlib.contextmanager
+def _aggregate_call():
+    """One top-level aggregate call: counted in :data:`AGG_CALLS` and run
+    inside the :data:`AGG_RANGE` profiler range."""
+    global AGG_CALLS
+    AGG_CALLS += 1
+    with torch.profiler.record_function(AGG_RANGE):
+        yield
+
+
+def _agg_sort(operands, num_keys):
+    """An aggregate's key sort (:func:`_stable_sort`), its 64-bit passes
+    counted in :data:`AGG_KEY_PASSES`."""
+    global AGG_KEY_PASSES
+    AGG_KEY_PASSES += len(_groups(operands[:num_keys]))
+    return _stable_sort(operands, num_keys)
+
+
 def hash_aggregate(keys, values, agg: str = "sum", *, _positions=None):
     """Group ``values`` by ``keys`` and reduce with ``agg``.
 
@@ -454,16 +515,34 @@ def hash_aggregate(keys, values, agg: str = "sum", *, _positions=None):
     position of the group's min / max, first occurrence). ``any`` / ``all``
     reduce ``value != 0`` to a bool per group.
 
+    The sample statistics (:data:`SAMPLE_AGGREGATIONS`) are float64:
+    ``var_samp`` / ``std_samp`` (divisor n - 1) and ``corr`` (Pearson's r),
+    whose value is the pair ``(x, y)``. Each is two-pass, every column first
+    shifted by its group's first value, so a constant column reads variance
+    0 exactly. They are NaN where undefined: fewer than 2 rows, or for
+    ``corr`` a constant column. A trailing bool column in the value operand
+    (``(x, keep)``, ``(x, y, keep)``) skips the rows where it is False.
+
     ``_positions`` (internal): the position column ``argmin`` / ``argmax``
     report instead of the row index.
     """
-    if isinstance(agg, (list, tuple)) or isinstance(values, (list, tuple)):
+    with _aggregate_call():
+        return _hash_aggregate(keys, values, agg, _positions=_positions)
+
+
+def _hash_aggregate(keys, values, agg, *, _positions=None):
+    """:func:`hash_aggregate` outside its profiler range and count."""
+    if isinstance(agg, (list, tuple)) or (isinstance(values, (list, tuple))
+                                          and agg not in SAMPLE_AGGREGATIONS):
         if not (isinstance(agg, (list, tuple)) and isinstance(values, (list, tuple))):
             raise ValueError("multi-aggregate needs BOTH values and agg as lists")
         if len(values) != len(agg) or not values:
             raise ValueError("values and agg lists must be non-empty and equal-length")
         return _hash_aggregate_multi(keys, list(values), list(agg), _positions=_positions)
     _check_agg(agg)
+    if agg in SAMPLE_AGGREGATIONS:
+        uk, (out,), count = _hash_aggregate_multi(keys, [values], [agg])
+        return uk, out, count
     cols, multi, n = _key_cols(keys)
     if values.shape[0] != n:
         raise ValueError("keys and values must have the same length")
@@ -483,9 +562,9 @@ def hash_aggregate(keys, values, agg: str = "sum", *, _positions=None):
     if agg in ("argmin", "argmax"):
         posr = (_positions if _positions is not None
                 else torch.arange(n, dtype=torch.int32, device=dev))
-        *sk, svw, sposr = _stable_sort([*limbs, vw, posr], num_keys=nk + 1)
+        *sk, svw, sposr = _agg_sort([*limbs, vw, posr], num_keys=nk + 1)
     else:
-        *sk, svw = _stable_sort([*limbs, vw], num_keys=nk + 1)
+        *sk, svw = _agg_sort([*limbs, vw], num_keys=nk + 1)
     sv = K.decode(svw, values.dtype)
     first = _mark_first(sk)
     last = _mark_last(first)
@@ -614,26 +693,31 @@ def _hash_aggregate_multi(keys, val_cols, aggs, _positions=None):
     values share a second). The (key, value)-sorted aggregations (median,
     quantiles, count_distinct, mode, argmin, argmax) each delegate to a
     single-aggregate call, one extra sort each; both order groups by key,
-    so rows align. Returns ``(unique_keys, [aggregates...], count)``.
+    so rows align. The sample statistics' columns ride the key sort too
+    (:func:`_sample_stat`). Returns ``(unique_keys, [aggregates...],
+    count)``.
     """
     for a in aggs:
         _check_agg(a)
     cols, multi, n = _key_cols(keys)
-    if any(v.shape[0] != n for v in val_cols):
+    operands = [_operand(a, v) for a, v in zip(aggs, val_cols)]
+    if any(c.shape[0] != n for op in operands for c in op):
         raise ValueError("all key/value columns must have equal length")
     dev = cols[0].device
     if n == 0:
-        return keys, [torch.zeros((0,), dtype=_out_dt(a, v.dtype), device=dev)
-                      for a, v in zip(aggs, val_cols)], _i32(0, dev)
+        return keys, [torch.zeros((0,), dtype=_out_dt(a, op[0].dtype), device=dev)
+                      for a, op in zip(aggs, operands)], _i32(0, dev)
     delegated = {
-        i: hash_aggregate(keys, val_cols[i], a, _positions=_positions)[1]
+        i: _hash_aggregate(keys, val_cols[i], a, _positions=_positions)[1]
         for i, a in enumerate(aggs) if a in _DELEGATED or quantile_q(a) is not None
     }
     own = [i for i in range(len(aggs)) if i not in delegated]
     limbs, specs = _cols_to_limbs(cols)
     nk = len(limbs)
-    out = _stable_sort([*limbs, *[val_cols[i] for i in own]], num_keys=nk)
-    sk, svs = out[:nk], dict(zip(own, out[nk:]))
+    out = iter(_agg_sort([*limbs, *[c for i in own for c in operands[i]]], num_keys=nk))
+    sk = [next(out) for _ in range(nk)]
+    sorted_ops = {i: tuple(next(out) for _ in operands[i]) for i in own}
+    svs = {i: op[0] for i, op in sorted_ops.items()}
     first = _mark_first(sk)
 
     def _of(*names):
@@ -651,10 +735,61 @@ def _hash_aggregate_multi(keys, val_cols, aggs, _positions=None):
     if first_idx:
         picked.update(zip(first_idx, filter(first, *[svs[i] for i in first_idx])[:-1]))
     gid = _gid(first)
+    sample_idx = _of(*SAMPLE_AGGREGATIONS)
+    if sample_idx:
+        # each row's group start: the groups' sizes summed before it
+        start = (torch.cumsum(group_n, 0, dtype=torch.int64) - group_n)[gid]
+        picked.update((i, _sample_stat(aggs[i], sorted_ops[i], gid, start, group_n))
+                      for i in sample_idx)
     results = [delegated[i] if i in delegated else picked[i] if i in picked else
                _reduce(a, svs[i], gid, group_n, int_sums.get(i), ntrues.get(i))
                for i, a in enumerate(aggs)]
     return (out_keys if multi else out_keys[0]), results, count
+
+
+def _sample_stat(agg, cols, gid, start, group_n):
+    """``var_samp`` / ``std_samp`` of x, or ``corr`` of (x, y), per group,
+    from columns sorted by key: row g for group g. ``start`` is each row's
+    group start, ``group_n`` the group sizes; a trailing bool column keeps
+    rows. Two passes in float64, each column first shifted by its group's
+    first kept value: a constant column's rows shift to exact zeros, so its
+    variance reads 0 and not its mean's rounding."""
+    width = 2 if agg in PAIR_AGGREGATIONS else 1
+    xs, keep = cols[:width], (cols[width] if len(cols) > width else None)
+    f64 = torch.float64
+    if keep is None:
+        n_g = group_n.to(f64)
+        ref = start
+    else:
+        n_g = _segsum(keep.to(f64), gid)
+        # the first kept row of each row's group: the next kept row at or
+        # after the group start (searched in the running count of kept rows)
+        kept = torch.cumsum(keep, 0, dtype=torch.int64)
+        before = kept[start] - keep[start].to(torch.int64)
+        ref = torch.searchsorted(kept, before + 1).clamp(max=gid.shape[0] - 1)
+    centred = []
+    for x in xs:
+        x = x.to(f64)
+        d = x - x[ref]
+        if keep is not None:
+            d = torch.where(keep, d, 0.0)
+        e = d - (_segsum(d, gid) / n_g.clamp(min=1))[gid]
+        if keep is not None:
+            e = torch.where(keep, e, 0.0)
+        centred.append(e)
+    ex = centred[0]
+    sxx = _segsum(ex * ex, gid)
+    undefined = n_g < 2
+    if agg == "corr":
+        ey = centred[1]
+        syy = _segsum(ey * ey, gid)
+        out = _segsum(ex * ey, gid) / (torch.sqrt(sxx) * torch.sqrt(syy))
+        undefined |= (sxx == 0) | (syy == 0)
+    else:
+        out = sxx / (n_g - 1).clamp(min=1)
+        if agg == "std_samp":
+            out = torch.sqrt(out)
+    return torch.where(undefined, torch.nan, out)
 
 
 def hash_aggregate_levels(keys, val_cols, aggs, level_cols):
@@ -675,6 +810,12 @@ def hash_aggregate_levels(keys, val_cols, aggs, level_cols):
     (padded to n; group j of a level = the j-th distinct key prefix in
     ascending order).
     """
+    with _aggregate_call():
+        return _hash_aggregate_levels(keys, val_cols, aggs, level_cols)
+
+
+def _hash_aggregate_levels(keys, val_cols, aggs, level_cols):
+    """:func:`hash_aggregate_levels` outside its profiler range and count."""
     for a in aggs:
         if a not in LEVEL_AGGREGATIONS:
             raise ValueError(f"hash_aggregate_levels supports {LEVEL_AGGREGATIONS}, got {a!r}")
@@ -699,7 +840,7 @@ def hash_aggregate_levels(keys, val_cols, aggs, level_cols):
     for _, nl in specs:
         limb_at.append(limb_at[-1] + nl)
     nk = len(limbs)
-    out = _stable_sort([*limbs, *val_cols], num_keys=nk)
+    out = _agg_sort([*limbs, *val_cols], num_keys=nk)
     sk, svs = out[:nk], out[nk:]
     uk_all = _limbs_to_cols(sk, specs)
     pos = torch.arange(n, dtype=torch.int32, device=dev)

@@ -15,6 +15,9 @@ with the same outputs:
   3. the inverse permutation back to input order (the reference's restore
      sort by position: ``out[pos_sorted] = result``).
 
+Each call runs inside the :data:`WINDOW_RANGE` profiler range and is
+counted in :data:`CALLS`.
+
 All requested window columns share the sort. Ties in ``order_by`` (and rows
 with no ``order_by``) keep their input order. Integer results, ranks, lags
 and counts are bit-identical to the reference's; float sums and means may
@@ -43,7 +46,11 @@ from radix_sort_tpu_torch.ops.query import (
     merge_rank,
 )
 
-__all__ = ["window", "WINDOW_OPS"]
+__all__ = ["window", "CALLS", "WINDOW_OPS", "WINDOW_RANGE"]
+
+# the profiler range every window() call runs in; CALLS counts the calls
+WINDOW_RANGE = "query window"
+CALLS = 0
 
 # value-less rank/count ops and value ops (partition-wide vs running)
 _RANK_OPS = (
@@ -392,6 +399,15 @@ def window(ops, *, partition_by=None, order_by=None, descending=None):
     scatter-add per partition; float running and frame sums are
     log-depth tree sums.
     """
+    global CALLS
+    CALLS += 1
+    with torch.profiler.record_function(WINDOW_RANGE):
+        return _window(ops, partition_by=partition_by, order_by=order_by,
+                       descending=descending)
+
+
+def _window(ops, *, partition_by=None, order_by=None, descending=None):
+    """:func:`window` outside its profiler range and count."""
     single = isinstance(ops, (str, tuple))
     specs = [_normalize_spec(ops)] if single else [_normalize_spec(s) for s in ops]
     if not specs:

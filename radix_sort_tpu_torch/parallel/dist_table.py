@@ -1078,6 +1078,9 @@ class DistTable:
         for out_name, spec in aggs.items():
             agg, col = (spec, None) if isinstance(spec, str) else (
                 spec[0], spec[1] if len(spec) > 1 else None)
+            if agg in Q.SAMPLE_AGGREGATIONS:
+                raise TypeError(f"{out_name!r}: {agg!r} is not supported over a DistTable; "
+                                "aggregate a single-device Table")
             if col is None:
                 if agg != "count":
                     raise ValueError(f"{out_name!r}: {agg!r} needs a value column")

@@ -53,6 +53,7 @@ from typing import Any
 import torch
 
 from radix_sort_tpu_torch.expr import Expr, _binop
+from radix_sort_tpu_torch.ops.query import PAIR_AGGREGATIONS
 
 __all__ = ["LazyTable"]
 
@@ -75,6 +76,13 @@ def _refs(x):
     if callable(x):
         return set(), False
     return set(), True  # a positional array reads no columns
+
+
+def _agg_values(spec):
+    """The value operands of an aggregate spec ``(agg, value|None, ...)``:
+    none for ``COUNT(*)``, two for a pair aggregation (CORR's x and y)."""
+    width = 2 if spec[0] in PAIR_AGGREGATIONS else 1
+    return [v for v in spec[1:1 + width] if v is not None]
 
 
 def _spec_value_refs(spec):
@@ -839,9 +847,7 @@ def _prune(node, required, memo):
             keep = [node.aggs[0]]  # a group-by needs >= 1 aggregate
         child_req, opaque = set(node.by), False
         for _, spec in keep:
-            agg = spec[0]
-            val = spec[1] if len(spec) > 1 else None
-            if val is not None:
+            for val in _agg_values(spec):
                 r, known = _refs(val)
                 child_req |= r
                 opaque |= not known
@@ -863,8 +869,7 @@ def _prune(node, required, memo):
         child_req = set(k for s in node.sets for k in s)
         opaque = False
         for _, spec in node.aggs:
-            val = spec[1] if len(spec) > 1 else None
-            if val is not None:
+            for val in _agg_values(spec):
                 r, known = _refs(val)
                 child_req |= r
                 opaque |= not known
@@ -1102,26 +1107,12 @@ def _exec(node, flags):
                           **_fit_kwargs(t.distinct, dict(node.kwargs)))
     if isinstance(node, Aggregate):
         t = _exec(node.child, flags)
-        aggs = {}
-        for name, spec in node.aggs:
-            agg, val, rest = spec[0], (spec[1] if len(spec) > 1 else None), \
-                spec[2:]
-            if val is None:
-                aggs[name] = agg
-            else:
-                aggs[name] = (agg, _materialize_col(val, t), *rest)
+        aggs = {name: _materialize_agg(spec, t) for name, spec in node.aggs}
         return t.aggregate(list(node.by), aggs,
                            **_fit_kwargs(t.aggregate, dict(node.kwargs)))
     if isinstance(node, AggregateSets):
         t = _exec(node.child, flags)
-        aggs = {}
-        for name, spec in node.aggs:
-            agg, val, rest = spec[0], (spec[1] if len(spec) > 1 else None), \
-                spec[2:]
-            if val is None:
-                aggs[name] = agg
-            else:
-                aggs[name] = (agg, _materialize_col(val, t), *rest)
+        aggs = {name: _materialize_agg(spec, t) for name, spec in node.aggs}
         return t.aggregate_sets(
             [list(s) for s in node.sets], aggs,
             grouping=dict(node.grouping) or None,
@@ -1212,6 +1203,15 @@ def _exec(node, flags):
         flags.append(ovf)
         return out
     raise AssertionError(f"unknown node {type(node).__name__}")
+
+
+def _materialize_agg(spec, table):
+    """An aggregate spec with its value operands materialized (``COUNT(*)``
+    as the bare name)."""
+    vals = _agg_values(spec)
+    if not vals:
+        return spec[0]
+    return (spec[0], *(_materialize_col(v, table) for v in vals), *spec[1 + len(vals):])
 
 
 def _materialize_col(x, table):

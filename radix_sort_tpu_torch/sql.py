@@ -76,6 +76,12 @@ Supported grammar::
     item  := * | expr [[AS] alias] | agg(expr) [[AS] alias]
            | winfn(args) OVER ([PARTITION BY cols] [ORDER BY col
              [ASC|DESC], ...] [ROWS frame]) [[AS] alias]
+             (an expr item may call aggregates anywhere inside it —
+             MAX(a) - MIN(b) AS r, POW(CORR(a, b), 2) AS r2 — over group
+             keys and aggregates only; the calls hoist into synthetic
+             aggregate columns and the expression is computed over the
+             aggregated rows, after HAVING. The port's own: the JAX
+             package refuses it)
     agg   := SUM COUNT AVG MEAN MIN MAX MEDIAN MODE VAR VARIANCE STD
              STDDEV FIRST LAST ARGMIN ARGMAX BOOL_AND BOOL_OR
              COUNT(*) COUNT(DISTINCT x_or_expr)
@@ -83,6 +89,12 @@ Supported grammar::
              rank floor(q*(len-1)) — exact order statistic;
              PERCENTILE_CONT(x, q): linear interpolation between the
              bracketing order statistics (float64)
+             VAR_SAMP(x) STDDEV_SAMP(x) CORR(x, y): sample variance and
+             deviation (n - 1) and Pearson's correlation, float64,
+             skipping rows where an argument is NULL, NULL for fewer than
+             2 such rows and (CORR) a constant argument, as PostgreSQL
+             (the port's own; MEDIAN is the lower order statistic and
+             VAR / STD the population moments, the JAX package's)
     winfn := ROW_NUMBER RANK DENSE_RANK PERCENT_RANK CUME_DIST NTILE(n)
              FIRST_VALUE(x) LAST_VALUE(x) NTH_VALUE(x, k)
              LAG(x[, off[, default]]) LEAD(x[, off[, default]])
@@ -155,6 +167,7 @@ import re
 import torch
 
 from radix_sort_tpu_torch.expr import Expr, col, lit, where
+from radix_sort_tpu_torch.ops.query import PAIR_AGGREGATIONS
 
 __all__ = ["sql", "SqlError"]
 
@@ -190,7 +203,13 @@ _AGG_FNS = {
     "VAR": "var", "VARIANCE": "var", "STD": "std", "STDDEV": "std",
     "FIRST": "first", "LAST": "last", "ARGMIN": "argmin",
     "ARGMAX": "argmax", "BOOL_AND": "all", "BOOL_OR": "any",
+    "VAR_SAMP": "var_samp", "STDDEV_SAMP": "std_samp", "CORR": "corr",
 }
+# aggregates over two columns: CORR(x, y)
+_PAIR_AGG_FNS = {f for f, a in _AGG_FNS.items() if a in PAIR_AGGREGATIONS}
+# operators that may follow an operand: an aggregate call they follow is
+# part of an expression, and hoists
+_EXPR_OPS = ("+", "-", "*", "/", "%", "||", "=", "!=", "<>", "<", "<=", ">", ">=")
 # parameterized aggregates: QUANTILE(x, q) -> the engine's "quantile:<q>"
 # (PERCENTILE_DISC semantics: the group value at rank floor(q*(len-1)))
 _PARAM_AGG_FNS = {"QUANTILE", "PERCENTILE_DISC", "PERCENTILE_CONT"}
@@ -919,9 +938,8 @@ class _Parser:
                 agg, argname = self._agg_args(fn)
                 return col(self._sink(agg, argname))
             raise SqlError(
-                f"aggregate {fn} is only allowed as a top-level SELECT "
-                f"item or inside HAVING / OVER clauses, not in this "
-                f"expression"
+                f"aggregate {fn} is only allowed in a SELECT item or "
+                f"inside HAVING / OVER clauses, not in this expression"
             )
         if fn in _WIN_FNS:
             raise SqlError(
@@ -973,17 +991,21 @@ class _Parser:
         saved = (self.allow_aggs, self.subq_ok)  # no nested aggs/subqueries
         self.allow_aggs = self.subq_ok = False
         try:
-            e = self.parse_expr()
+            es = [self.parse_expr()]
+            if fname in _PAIR_AGG_FNS:
+                self.expect_op(",")
+                es.append(self.parse_expr())
         finally:
             self.allow_aggs, self.subq_ok = saved
         self.expect_op(")")
-        name = e.args[0] if e.kind == "col" else self._pre(e)
-        return agg, name
+        names = tuple(e.args[0] if e.kind == "col" else self._pre(e) for e in es)
+        return agg, names if fname in _PAIR_AGG_FNS else names[0]
 
     def _sink(self, agg, argname):
-        """Register a hoisted aggregate (HAVING / OVER) and return its
-        synthetic post-aggregation column name (deduped by spec)."""
-        spec = (agg,) if argname is None else (agg, argname)
+        """Register a hoisted aggregate (SELECT expressions, HAVING, OVER)
+        and return its synthetic post-aggregation column name (deduped by
+        spec)."""
+        spec = _agg_spec(agg, argname)
         if spec not in self.agg_sink:
             self.agg_sink[spec] = f"__agg_{len(self.agg_sink)}"
         return self.agg_sink[spec]
@@ -1045,8 +1067,19 @@ class _Parser:
                      or t[1].upper() in _PARAM_AGG_FNS
                      or t[1].upper() in _WIN_FNS)
                 and self.peek(1) == ("op", "(")):
-            return self._call_item()
-        e = self.parse_expr()
+            start = self.i
+            item = self._call_item()
+            if item is not None:
+                return item
+            self.i = start  # an aggregate that an operator follows
+        # aggregate calls inside the expression (MAX(a) - MIN(b),
+        # POW(CORR(a, b), 2)) hoist into synthetic aggregate columns; the
+        # expression is computed over the aggregated rows
+        saved, self.allow_aggs = self.allow_aggs, True
+        try:
+            e = self.parse_expr()
+        finally:
+            self.allow_aggs = saved
         alias = self._alias()
         if alias is None:
             if e.kind == "col":
@@ -1059,7 +1092,9 @@ class _Parser:
 
     def _call_item(self):
         """A top-level call item: ``fn(args...)`` — an aggregate, or a
-        window function when followed by ``OVER (...)``."""
+        window function when followed by ``OVER (...)``. None for an
+        aggregate that an operator follows: the caller parses the whole
+        expression again, with the call hoisted."""
         fname = self.next()[1].upper()
         self.expect_op("(")
         star = False
@@ -1133,6 +1168,8 @@ class _Parser:
             pre = ("quantile_cont" if fname == "PERCENTILE_CONT"
                    else "quantile")
             agg = f"{pre}:{float(args[1][1])}"
+            if self.at_op(*_EXPR_OPS):
+                return None
             if args[0][0] == "expr":
                 argname, expr_arg = self._pre(args[0][1]), True
             else:
@@ -1148,6 +1185,7 @@ class _Parser:
         agg = _AGG_FNS[fname]
         argname = None
         expr_arg = False
+        width = 2 if fname in _PAIR_AGG_FNS else 1
         if star:
             if fname != "COUNT":
                 raise SqlError(f"{fname}(*) is not supported; name a column")
@@ -1156,30 +1194,29 @@ class _Parser:
                 if fname != "COUNT":
                     raise SqlError("DISTINCT only inside COUNT(...)")
                 agg = "count_distinct"
-            if len(args) != 1 or args[0][0] not in ("col", "expr"):
+            if (len(args) != width
+                    or any(a[0] not in ("col", "expr") for a in args)):
                 raise SqlError(
-                    f"aggregate {fname} takes exactly one column or "
-                    f"expression argument"
+                    f"aggregate {fname} takes exactly {width} column or "
+                    f"expression argument{'s' if width > 1 else ''}"
                 )
-            if args[0][0] == "expr":
-                argname = self._pre(args[0][1])
-                expr_arg = True
-            else:
-                argname = args[0][1]
-        if self.at_op("+", "-", "*", "/", "%",
-                      "=", "!=", "<>", "<", "<=", ">", ">="):
-            raise SqlError(
-                f"aggregate {fname} is only allowed as a top-level "
-                f"SELECT item (optionally aliased), not inside an "
-                f"expression"
-            )
+            names = []
+            for a in args:
+                if a[0] == "expr":
+                    names.append(self._pre(a[1]))
+                    expr_arg = True
+                else:
+                    names.append(a[1])
+            argname = tuple(names) if width > 1 else names[0]
+        if self.at_op(*_EXPR_OPS):
+            return None
         alias = self._alias()
         if alias is None:
             if expr_arg:
                 raise SqlError(
                     f"{fname}(<expression>) needs an alias (AS name)"
                 )
-            alias = agg if argname is None else f"{agg}_{argname}"
+            alias = "_".join([agg, *_agg_spec(agg, argname)[1:]])
         return ("agg", agg, argname, alias)
 
     def _qualified_ident(self, what):
@@ -1496,6 +1533,14 @@ class _Parser:
         if self.peek()[0] == "id":
             return self.ident()
         return None
+
+
+def _agg_spec(agg, argname):
+    """The planner's aggregate spec: ``(agg,)`` for COUNT(*), ``(agg,
+    column)``, or ``(agg, x, y)`` for a pair aggregate."""
+    if argname is None:
+        return (agg,)
+    return (agg, *argname) if isinstance(argname, tuple) else (agg, argname)
 
 
 def _gb_key(p):
@@ -2073,8 +2118,9 @@ def _select_core(p, tables, kwargs):
                     raise SqlError(
                         "GROUP BY ALL cannot be combined with SELECT *"
                     )
-                if it[0] == "expr":
-                    e = it[1]
+                if it[0] == "expr" and not (set(it[1].columns)
+                                            & set(p.agg_sink.values())):
+                    e = it[1]  # (an expression over aggregates is none)
                     group_by.append(
                         e.args[0] if e.kind == "col" else e)
             if not group_by:
@@ -2134,6 +2180,8 @@ def _select_core(p, tables, kwargs):
     if has_aggs or group_by:
         aggs, out_names, grouping_out = {}, [], {}
         derived_keys = {}  # computed GROUP BY keys (SELECT expr AS g)
+        post_exprs = {}  # SELECT expressions over hoisted aggregates
+        hoisted = set(p.agg_sink.values())
         win_groups = {}  # (partition, order, desc) -> {alias: spec}
         if any(not isinstance(g, str) for g in group_by):
             # expression GROUP BY keys: reuse a structurally identical
@@ -2175,7 +2223,7 @@ def _select_core(p, tables, kwargs):
                 out_names.append(alias)
             elif it[0] == "agg":
                 _, agg, argname, alias = it
-                aggs[alias] = (agg,) if argname is None else (agg, argname)
+                aggs[alias] = _agg_spec(agg, argname)
                 out_names.append(alias)
             else:
                 _, e, alias = it
@@ -2204,6 +2252,12 @@ def _select_core(p, tables, kwargs):
                     # a computed group key: SELECT k / 10 AS bucket ...
                     # GROUP BY bucket — materialized pre-aggregation
                     derived_keys[alias] = e
+                    out_names.append(alias)
+                elif (set(e.columns) & hoisted
+                      and set(e.columns) <= hoisted | set(group_by)):
+                    # an expression over aggregates (and group keys),
+                    # computed over the aggregated rows
+                    post_exprs[alias] = e
                     out_names.append(alias)
                 else:
                     raise SqlError(
@@ -2248,6 +2302,8 @@ def _select_core(p, tables, kwargs):
             lt = lt.filter(having)
         for how, on, sub in having_joins:
             lt = _apply_pending_join(lt, how, on, sub)
+        if post_exprs:
+            lt = lt.with_columns(**post_exprs)
         for (part, order, desc), ops in win_groups.items():
             lt = lt.window(
                 ops,

@@ -58,7 +58,7 @@ __all__ = ["Table"]
 
 # aggregations that are arithmetic over the value domain: meaningless on
 # dictionary codes (order- and identity-based ones are fine)
-_NUMERIC_ONLY_AGGS = ("sum", "mean", "var", "std", "any", "all")
+_NUMERIC_ONLY_AGGS = ("sum", "mean", "var", "std", "any", "all") + Q.SAMPLE_AGGREGATIONS
 # window ops whose output is a value of the input column (the output column
 # inherits the source column's dictionary)
 _VALUE_PRESERVING_WINDOW = (
@@ -531,7 +531,12 @@ class Table:
         separate compaction: excluded rows ride the key sort's leading flag
         word. One key sort computes every aggregate (the multi-aggregate);
         the (key, value)-sorted ones add one sort each. ``argmin`` /
-        ``argmax`` report positions in this table's rows."""
+        ``argmax`` report positions in this table's rows. The sample
+        statistics of :data:`~radix_sort_tpu_torch.ops.query.SAMPLE_AGGREGATIONS`
+        (``("var_samp", x)``, ``("std_samp", x)``, ``("corr", x, y)``) skip
+        rows where a value is NULL and are NULL where undefined: fewer than
+        two such rows, or for ``corr`` a constant column (PostgreSQL's
+        semantics); a NaN among a group's values also reads NULL there."""
         by = _as_list(by)
         if not aggs:
             if not by:
@@ -567,6 +572,13 @@ class Table:
                 nonnull_slot[key] = _slot("sum", (~m).to(torch.int32))
             return nonnull_slot[key]
 
+        def _value(col):
+            """(values with NULLs zeroed, mask or None, key of the mask)."""
+            m = self._mask_of_ref(col)
+            if isinstance(col, NL.MaskedColumn):
+                return _where(~m, _tensor(col.values, self._dev)), m, id(col)
+            return self._resolve(col)[0], m, (col if isinstance(col, str) else id(col))
+
         for out_name, spec in aggs.items():
             if isinstance(spec, str):
                 agg, col = spec, None
@@ -582,13 +594,23 @@ class Table:
                   and (agg in ("min", "max", "first", "last", "mode", "median")
                        or agg.startswith("quantile:"))):
                 out_dicts[out_name] = self._dicts[col]  # a value of the column
-            m = self._mask_of_ref(col)
-            if isinstance(col, NL.MaskedColumn):
-                arr = _where(~m, _tensor(col.values, self._dev))
-                mkey = id(col)
-            else:
-                arr = self._resolve(col)[0]
-                mkey = col if isinstance(col, str) else id(col)
+            if agg in Q.SAMPLE_AGGREGATIONS:
+                # the value columns, and the rows where none is NULL; the
+                # result is NULL where undefined (NaN from the operator)
+                refs = [col]
+                if agg in Q.PAIR_AGGREGATIONS:
+                    if len(spec) < 3 or spec[2] is None:
+                        raise ValueError(f"{out_name!r}: {agg!r} needs two value columns")
+                    self._no_string(spec[2], f"{out_name!r}: {agg}")
+                    refs.append(spec[2])
+                vals = [_value(r) for r in refs]
+                masks = [m for _, m, _ in vals if m is not None]
+                operand = [arr for arr, _, _ in vals]
+                if masks:
+                    operand.append(~torch.stack(masks).any(0))
+                post.append((out_name, "sample", _slot(agg, tuple(operand))))
+                continue
+            arr, m, mkey = _value(col)
             if m is None:
                 post.append((out_name, "plain", _slot(agg, arr)))
                 continue
@@ -632,7 +654,10 @@ class Table:
             if kind == "plain":
                 cols[out_name] = outs[item[2]]
                 continue
-            if kind == "pair":
+            if kind == "sample":
+                v = outs[item[2]]
+                gm = torch.isnan(v)
+            elif kind == "pair":
                 v, mi = outs[item[2]], outs[item[3]]
                 gm = mi != 0
             else:

@@ -490,6 +490,42 @@ def test_float_sums_and_levels_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_sample_aggregates_on_card_match_cpu(cuda):
+    """var_samp / std_samp / corr, with a keep column and with one-row and
+    constant groups among 3000, and SQL aggregates inside expressions with
+    NULLs skipped, on the card against the CPU: NaN and NULL where the CPU
+    has them, values within 1e-9 of the CPU's relative to their size (the
+    card's scatter-adds sum in another order)."""
+    rng = np.random.default_rng(11)
+    n = 200_000
+    k = rng.integers(0, 3000, n).astype(np.int32)
+    k[:3] = [5000, 5001, 5001]
+    x = np.round(rng.random(n) * 100, 6)
+    x[k == 7] = 0.1
+    a = rng.integers(1, 6, n).astype(np.int32)
+    keep = rng.random(n) < 0.9
+    cols = [torch.from_numpy(c) for c in (k, x, a, keep)]
+    vals = [cols[1], (cols[1], cols[3]), (cols[2], cols[1]), (cols[2], cols[1], cols[3])]
+    aggs = ["var_samp", "std_samp", "corr", "corr"]
+    cpu = rst.hash_aggregate(cols[0], vals, aggs)
+    gpu = rst.hash_aggregate(cols[0].cuda(), [_cuda(v) for v in vals], aggs)
+    _same((gpu[0], gpu[2]), (cpu[0], cpu[2]), "keys")
+    m = int(cpu[2])
+    for agg, g, c in zip(aggs, gpu[1], cpu[1]):
+        _close(g[:m], c[:m], 1e-9 * (1 + float(c[:m].abs().nan_to_num().max())), agg)
+    t = {"k": k, "a": a, "x": np.ma.MaskedArray(x, ~keep)}
+    q = ("SELECT k, MAX(a) - MIN(x) AS r, POW(CORR(a, x), 2) AS r2, STDDEV_SAMP(x) AS sd "
+         "FROM t GROUP BY k")
+    c = rst.sql(q, {"t": rst.Table(t, device="cpu")}).collect().to_numpy()
+    g = rst.sql(q, {"t": rst.Table(t)}).collect().to_numpy()
+    assert list(g) == list(c)
+    for name in c:
+        assert np.array_equal(np.ma.getmaskarray(g[name]), np.ma.getmaskarray(c[name])), name
+        np.testing.assert_allclose(np.ma.filled(g[name], 0), np.ma.filled(c[name], 0),
+                                   rtol=1e-9, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.cuda
 def test_sort_api_on_card_matches_cpu(cuda):
     """lexsort, sort_segments, top_k and the 128-bit trio on the card; the
     pallas lexsort and sort_pairs128 at 2**19 rows go through K1."""
