@@ -42,7 +42,15 @@ started together) and drives the port's paths:
     worst case of recursive summation in any order); O1 a three-column
     ``lexsort`` of LINEITEM and O2 a 128-bit ``sort_pairs128``, both on the
     kernel engine, so K1 runs on the ORDER BY path; then K1 against its
-    plain version at those shapes;
+    plain version at those shapes; the float sums of A1-A5 go through the
+    segmented-sum kernel (SS, ``csrc/segment_sum.cu``; launches read as
+    K2's here and on every later path that aggregates floats: phases 9-12,
+    the demo's suites; the examples' are reported), which is then held
+    against its plain version and timed beside
+    its bound, the plain version and ``index_add_`` (what the port called
+    before; it never does now) at Q1's five float columns, sorted by key,
+    and at the db-benchmark groupby task's q4 (1e8 rows into 100 groups)
+    and q10 (1e8 rows, nearly every row its own group) columns;
   * the relational facade, ``Table``, at TPC-H scale factor 10 (phase 9):
     T1 Q1, T2 Q3 (two joins), T3 Q13 (a left join), T4 seven window ops
     over ORDERS and a running sum in one partition, T5 band joins (1024
@@ -173,7 +181,7 @@ from radix_sort_tpu_torch.native import csvio
 from radix_sort_tpu_torch.native import host as nhost
 from radix_sort_tpu_torch.table import Table
 from radix_sort_tpu_torch.ops import (expand, extract, merge_runs, pallas_sort, run_ends,
-                                      sample_sort)
+                                      sample_sort, segment_sum)
 from radix_sort_tpu_torch.parallel import collectives as rcoll
 from radix_sort_tpu_torch.parallel import dist_asof as rda
 from radix_sort_tpu_torch.parallel import dist_query as rdq
@@ -1626,6 +1634,72 @@ def time_workloads(work):
     return out
 
 
+SS_ROWS = 100_000_000  # the db-benchmark groupby task's G1_1e8 table
+
+
+def ss_call(label, x, gid):
+    """SS at one column: one launch, against its plain version (within
+    both sides' float64 summation error, and one rounding of the narrower
+    types), rows past the groups +0.0, then timed beside its bound (the
+    column read and every output row written once), the plain version and
+    ``index_add_`` in the column's type, what the port called before."""
+    before = segment_sum.LAUNCHES
+    got = segment_sum.segment_sum_sorted(x, gid)
+    torch.cuda.synchronize()
+    check(segment_sum.LAUNCHES == before + 1, f"SS {label}: not one launch")
+    ref = segment_sum.segment_sum_sorted_plain(x, gid)
+    n, groups = x.shape[0], int(gid[-1]) + 1
+    rows = torch.bincount(gid, minlength=n).to(torch.float64)
+    absum = torch.zeros(n, dtype=torch.float64, device=DEV).index_add_(0, gid, x.double().abs())
+    tol = 2 * rows * U64 * absum
+    if x.dtype != torch.float64:
+        tol += torch.finfo(x.dtype).eps * ref.double().abs()
+    err = (got.double() - ref.double()).abs()
+    check(bool((err <= tol).all()), f"SS {label}: off its plain version")
+    check(not bool(_bits(got[groups:]).any()), f"SS {label}: rows past the groups not +0.0")
+    del got, ref, rows, absum, tol, err
+    mk, mp, ml = interleaved_ms(lambda: segment_sum.segment_sum_sorted(x, gid),
+                                lambda: segment_sum.segment_sum_sorted_plain(x, gid),
+                                lambda: torch.zeros_like(x).index_add_(0, gid, x))
+    nbytes = 2 * n * x.element_size()
+    bound = nbytes / HBM_BYTES_PER_MS
+    dt = str(x.dtype).replace("torch.", "")
+    log(f"SS {label}: {n:,} {dt} rows into {groups:,} groups: kernel {mk:.3f} ms "
+        f"({nbytes / mk / 1e6:.0f} GB/s), bound {bound:.3f} ms ({100 * bound / mk:.0f}% of it), "
+        f"plain {mp:.3f} ms, index_add_ {ml:.3f} ms")
+    return {"shape": f"{label}: {n:,} {dt} rows into {groups:,} groups", "rows": n,
+            "ms": mk, "plain_ms": mp, "bound_ms": bound, "library_ms": ml}
+
+
+def ss_at_shapes(t, gen):
+    """SS at Q1's five float sums (SUM and AVG of l_extendedprice, the two
+    derived revenue sums, AVG(l_discount)), each column sorted by
+    (l_returnflag, l_linestatus) as hash_aggregate sorts it, and at the
+    db-benchmark groupby task's q4 (v3 into 100 groups) and q10 (v3 by six
+    keys: nearly every row its own group) at 1e8 rows."""
+    rf, ls, _, price, disc, _, disc_price, charge = q1_inputs(t)
+    key, perm = torch.sort((rf.to(torch.int32) << 8) | ls.to(torch.int32), stable=True)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    gid = torch.cumsum(first, 0) - 1
+    calls = [ss_call(label, col[perm], gid) for label, col in (
+        ("Q1 sum(l_extendedprice)", price), ("Q1 avg(l_extendedprice)", price),
+        ("Q1 sum(disc_price)", disc_price), ("Q1 sum(charge)", charge),
+        ("Q1 avg(l_discount)", disc))]
+    del rf, ls, price, disc, disc_price, charge, key, perm, first, gid
+    v3 = torch.round(torch.rand(SS_ROWS, generator=gen, device=DEV, dtype=torch.float64)
+                     * 1e8) / 1e6
+    gid = torch.sort(torch.randint(0, 100, (SS_ROWS,), generator=gen, device=DEV)).values
+    calls.append(ss_call("h2o q4 avg(v3)", v3, gid))
+    first = torch.rand(SS_ROWS, generator=gen, device=DEV) >= 1e-3
+    first[0] = True
+    gid = torch.cumsum(first, 0) - 1
+    calls.append(ss_call("h2o q10 sum(v3)", v3, gid))
+    del v3, gid, first
+    torch.cuda.empty_cache()
+    return calls
+
+
 # ---------------------------------------------------------------- phase 9
 
 Q3_DATE = _days(1995, 3, 15)  # TPC-H 2.4.3 substitution parameters
@@ -2594,7 +2668,8 @@ def distributed_path(gen):
     """Phase 11: D1-D5 on a 4-slot mesh on cuda:0, each checked against its
     oracle, then timed. Returns (the K2 shapes it recorded, K2 launches of
     the checked distributed calls, the joins (name -> call), whose unions
-    are the only ones of the path, and their run-ends launches)."""
+    are the only ones of the path, their run-ends launches, and the
+    segmented-sum kernel's launches of the checked D3-D5 calls)."""
     mesh = rdist.data_mesh(D_SHARDS, device=DEV)
     mesh8 = rdist.data_mesh(2 * D_SHARDS, device=DEV)
     log(f"mesh: {mesh}")
@@ -2605,12 +2680,15 @@ def distributed_path(gen):
     t = tpch_sf10(gen)
     log(f"TPC-H SF10 for the distributed path: {t['o_orderkey'].shape[0]:,} orders, "
         f"{t['l_orderkey'].shape[0]:,} lineitems, {t['c_custkey'].shape[0]:,} customers")
+    ss_before = segment_sum.LAUNCHES
     join_work, k2_join, join_launches, re_launches = d_join(t, gen, mesh)
     agg_work = d_aggregate(t, mesh)
     op_work, k2_ops, op_launches = d_operators(t, gen, mesh)
+    ss_launches = segment_sum.LAUNCHES - ss_before
     time_dist({**join_work, **agg_work, **op_work})
     joins = {label.split()[0]: call for label, (call, *_) in join_work.items()}
-    return {**k2_join, **k2_ops}, join_launches + op_launches, joins, re_launches
+    return ({**k2_join, **k2_ops}, join_launches + op_launches, joins, re_launches,
+            ss_launches)
 
 
 MR_ROWS = D1_ROWS  # a card's rows in the 4-card sort cell
@@ -3702,13 +3780,14 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build(["extract", "expand", "run_ends"])  # one nvcc per source, all together
+    _build.build(["extract", "expand", "run_ends", "segment_sum"])  # one nvcc each, together
     extract._kernel()
     expand._kernel()
     run_ends._kernel()
+    segment_sum._kernel()
     log(f"kernel builds + load: {time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{k} {v:.2f} s" for k, v in _build.BUILD_SECONDS.items()) + ")")
-    for name in ("extract", "expand", "run_ends"):
+    for name in ("extract", "expand", "run_ends", "segment_sum"):
         for line in _build.LOG.get(name, "").splitlines():
             if "Used" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -3747,9 +3826,14 @@ def main():
     log(f"TPC-H SF10 for GROUP BY / ORDER BY: {t['l_orderkey'].shape[0]:,} lineitems, "
         f"{t['o_orderkey'].shape[0]:,} orders, {t['p_brand'].shape[0]:,} parts, "
         f"{t['ps_partkey'].shape[0]:,} partsupp rows")
+    segment_sum.LAUNCHES = 0
     agg_work = groupby_path(t)
+    ss_groupby = segment_sum.LAUNCHES
+    check(ss_groupby > 0, "the GROUP BY path never launched the segmented-sum kernel")
+    log(f"GROUP BY path: segmented-sum kernel calls {ss_groupby}")
     time_workloads(agg_work)
     del agg_work
+    ss_rows = ss_at_shapes(t, gen)
     extract.LAUNCHES = 0
     ob_work = orderby_path(t, gen)
     k1_orderby = extract.LAUNCHES
@@ -3764,12 +3848,14 @@ def main():
     del ob_work, t
 
     # the relational facade at TPC-H SF10 (phase 9)
-    expand.LAUNCHES = run_ends.LAUNCHES = 0
+    expand.LAUNCHES = run_ends.LAUNCHES = segment_sum.LAUNCHES = 0
     table_work, table_k2 = table_path(gen)
-    k2_table, re_table = expand.LAUNCHES, run_ends.LAUNCHES
+    k2_table, re_table, ss_table = expand.LAUNCHES, run_ends.LAUNCHES, segment_sum.LAUNCHES
     check(k2_table > 0, "the Table path never launched the expand kernel")
     check(re_table > 0, "the Table path never launched the run-ends kernel")
-    log(f"Table path: expand kernel calls {k2_table}, run-ends kernel calls {re_table}")
+    check(ss_table > 0, "the Table path never launched the segmented-sum kernel")
+    log(f"Table path: expand kernel calls {k2_table}, run-ends kernel calls {re_table}, "
+        f"segmented-sum kernel calls {ss_table}")
     time_workloads(table_work)
     k2_table_rows, k2_err3 = k2_at_shapes(table_k2)
     re_table_rows = run_ends_at_shapes("table", {label.split()[0]: call
@@ -3777,12 +3863,14 @@ def main():
     del table_work, table_k2
 
     # the SQL path at TPC-H SF10 (phase 10)
-    expand.LAUNCHES = run_ends.LAUNCHES = 0
+    expand.LAUNCHES = run_ends.LAUNCHES = segment_sum.LAUNCHES = 0
     sql_work, sql_k2 = sql_path(gen)
-    k2_sql, re_sql = expand.LAUNCHES, run_ends.LAUNCHES
+    k2_sql, re_sql, ss_sql = expand.LAUNCHES, run_ends.LAUNCHES, segment_sum.LAUNCHES
     check(k2_sql > 0, "the SQL path never launched the expand kernel")
     check(re_sql > 0, "the SQL path never launched the run-ends kernel")
-    log(f"SQL path: expand kernel calls {k2_sql}, run-ends kernel calls {re_sql}")
+    check(ss_sql > 0, "the SQL path never launched the segmented-sum kernel")
+    log(f"SQL path: expand kernel calls {k2_sql}, run-ends kernel calls {re_sql}, "
+        f"segmented-sum kernel calls {ss_sql}")
     time_workloads(sql_work)
     k2_sql_rows, k2_err4 = k2_at_shapes(sql_k2)
     re_sql_rows = run_ends_at_shapes("sql", {label.split()[0]: call
@@ -3793,12 +3881,14 @@ def main():
     # the distributed layer on a 4-slot mesh on one card (phase 11)
     torch.cuda.empty_cache()
     expand.LAUNCHES = 0  # each distributed call's launches are read around it
-    (dist_k2, k2_dist, dist_joins, re_dist), mr_dist = merges_of(
+    (dist_k2, k2_dist, dist_joins, re_dist, ss_dist), mr_dist = merges_of(
         "distributed", lambda: distributed_path(gen))
     check(mr_dist > 0, "the distributed path never launched the merge kernel")
     check(k2_dist > 0, "the distributed path never launched the expand kernel")
     check(re_dist > 0, "the distributed path never launched the run-ends kernel")
-    log(f"distributed path: expand kernel calls {k2_dist}, run-ends kernel calls {re_dist}")
+    check(ss_dist > 0, "the distributed path never launched the segmented-sum kernel")
+    log(f"distributed path: expand kernel calls {k2_dist}, run-ends kernel calls {re_dist}, "
+        f"segmented-sum kernel calls {ss_dist}")
     k2_dist_rows, k2_err5 = k2_at_shapes(dist_k2)
     re_dist_rows = run_ends_at_shapes("dist", dist_joins)
     del dist_k2, dist_joins
@@ -3808,11 +3898,15 @@ def main():
     # DistTable on the 4-slot mesh at TPC-H SF10 (phase 12)
     torch.cuda.empty_cache()
     expand.LAUNCHES = 0  # each DistTable call's launches are read around it
+    segment_sum.LAUNCHES = 0
     (dt_work, dt_k2, k2_dt, re_dt), mr_dt = merges_of("DistTable",
                                                       lambda: dist_table_path(gen))
+    ss_dt = segment_sum.LAUNCHES
     check(k2_dt > 0, "the DistTable path never launched the expand kernel")
     check(re_dt > 0, "the DistTable path never launched the run-ends kernel")
-    log(f"DistTable path: expand kernel calls {k2_dt}, run-ends kernel calls {re_dt}")
+    check(ss_dt > 0, "the DistTable path never launched the segmented-sum kernel")
+    log(f"DistTable path: expand kernel calls {k2_dt}, run-ends kernel calls {re_dt}, "
+        f"segmented-sum kernel calls {ss_dt}")
     time_dist(dt_work, MUST_EXCHANGE_DT)
     re_dt_rows = run_ends_at_shapes("dist_table", {label.split()[0]: call
                                                    for label, (call, *_) in dt_work.items()})
@@ -3826,19 +3920,24 @@ def main():
     k1_demo, k1_demo_rows, k1_err3 = demo_sweep(gen)
     torch.cuda.empty_cache()
     demo_datasets()
+    segment_sum.LAUNCHES = 0
     k2_demo, demo_k2, re_demo, demo_re = demo_suites()
+    ss_demo = segment_sum.LAUNCHES
+    check(ss_demo > 0, "the demo's suites never launched the segmented-sum kernel")
+    log(f"13c: segmented-sum kernel calls {ss_demo}")
     k2_demo_rows, k2_err7 = k2_at_shapes(demo_k2)
     re_demo_rows = run_ends_at_shapes("demo", demo_re)
     del demo_k2, demo_re
     torch.cuda.empty_cache()
     sf1_load()
-    extract.LAUNCHES = expand.LAUNCHES = run_ends.LAUNCHES = 0
+    extract.LAUNCHES = expand.LAUNCHES = run_ends.LAUNCHES = segment_sum.LAUNCHES = 0
     ex_k1, ex_k2, ex_re = examples_path()
     k1_examples, k2_examples, re_examples = extract.LAUNCHES, expand.LAUNCHES, run_ends.LAUNCHES
+    ss_examples = segment_sum.LAUNCHES
     check(k2_examples > 0, "the examples never launched the expand kernel")
     check(re_examples > 0, "the examples never launched the run-ends kernel")
     log(f"examples path: extract kernel calls {k1_examples}, expand kernel calls {k2_examples}, "
-        f"run-ends kernel calls {re_examples}")
+        f"run-ends kernel calls {re_examples}, segmented-sum kernel calls {ss_examples}")
     k1_ex_rows, k1_err4 = {}, 0
     for name, call in ex_k1.items():
         k1_ex_rows[name], e = k1_against_plain(record_k1(call), name)
@@ -3850,6 +3949,8 @@ def main():
     r_row = next(r for r in k2_rows if r["shape"] == "R")
     re_by_path = {"join": re_join, "table": re_table, "sql": re_sql, "dist": re_dist,
                   "dist_table": re_dt, "demo": re_demo, "examples": re_examples}
+    ss_by_path = {"groupby": ss_groupby, "table": ss_table, "sql": ss_sql, "dist": ss_dist,
+                  "dist_table": ss_dt, "demo": ss_demo, "examples": ss_examples}
     re_rows = (re_join_rows + re_table_rows + re_sql_rows + re_dist_rows + re_dt_rows
                + re_demo_rows + re_ex_rows)
     re_big = max(re_rows, key=lambda r: r["rows"])
@@ -3919,6 +4020,20 @@ def main():
         "bound_by": "bytes",
         "library_ms": mr_row["library_ms"],  # stable torch.sort + gather, never called
         "shape": mr_row["shape"],
+    }, {
+        "name": "segment_sum_sorted",
+        "route": "cuda",
+        "source": "radix_sort_tpu_torch/csrc/segment_sum.cu",
+        "replaces": None,  # the JAX package's segment_sum is a scatter XLA emits
+        "launches": sum(ss_by_path.values()),
+        "launches_by_path": ss_by_path,
+        "ms": sum(r["ms"] for r in ss_rows[:5]),
+        "plain_ms": sum(r["plain_ms"] for r in ss_rows[:5]),
+        "bound_ms": sum(r["bound_ms"] for r in ss_rows[:5]),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in ss_rows[:5]),  # index_add_, never called
+        "shape": "Q1's five float sums, summed; q4's and q10's columns in calls",
+        "calls": ss_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -18,11 +18,12 @@ bit-identical to the reference's:
     join's expansion.
   - ``repeat``: ``np.repeat`` into a static-size output (UNNEST), on K2.
   - ``hash_aggregate``: GROUP BY as a stable sort by key, group-boundary
-    marks, and segment reductions: scatter-adds and scatter min/max per
-    group id, or differences of running sums compacted at group ends.
+    marks, and segment reductions: segmented float sums and scatter min/max
+    per group id, or differences of running sums compacted at group ends.
     ``hash_aggregate_levels`` serves every ROLLUP level from one sort.
-    Float sums are exact only to ULP(group sum): their summation order is
-    the scatter's. Beside the reference's aggregations the port has the
+    Float sums accumulate each group in float64 in a fixed order and round
+    once; the reference's are exact only to ULP(group sum), in its
+    scatter's order. Beside the reference's aggregations the port has the
     sample statistics of :data:`SAMPLE_AGGREGATIONS` (CORR over a pair of
     columns among them), which the JAX package lacks.
 
@@ -49,6 +50,7 @@ from radix_sort_tpu_torch import keys as K
 from radix_sort_tpu_torch.ops import expand, run_ends
 from radix_sort_tpu_torch.ops._cosort import _groups, cosort
 from radix_sort_tpu_torch.ops.expand import expand_offsets
+from radix_sort_tpu_torch.ops.segment_sum import segment_sum_sorted
 
 __all__ = [
     "AGGREGATIONS",
@@ -437,10 +439,11 @@ def _run_bounds(first, end=False):
 
 
 def _segsum(x, gid):
-    """``jax.ops.segment_sum(x, gid, num_segments=len(x))``: untouched
-    segments hold 0. A float scatter-add on the card is atomic, so its
-    summation order varies between runs."""
-    return torch.zeros_like(x).index_add_(0, gid, x)
+    """``jax.ops.segment_sum(x, gid, num_segments=len(x))`` of a float
+    column over key-sorted rows (``gid`` from :func:`_gid`): untouched
+    segments hold 0. Each group accumulates in float64 in a fixed order and
+    rounds once (``ops/segment_sum.py``; on the card the kernel SS)."""
+    return segment_sum_sorted(x, gid)
 
 
 def _seg_extreme(w, gid, op):
@@ -504,7 +507,7 @@ def hash_aggregate(keys, values, agg: str = "sum", *, _positions=None):
     ``aggregates`` is then a list.
 
     sum/count accumulate in the value dtype (wrapping for integers, IEEE
-    for floats; a float sum is a scatter-add per group); min/max are exact
+    for floats, each group summed in float64 and rounded once); min/max are exact
     for any supported dtype; mean is group sum / group count in float32
     (float64 values keep float64). The holistic aggregations: ``first`` /
     ``last`` (input order; the key sort is stable), ``median`` (the lower
@@ -635,9 +638,10 @@ def _reduce(agg, sv, gid, group_n, int_sum=None, ntrue=None, words=None):
     ``group_n`` holds the group sizes, ``int_sum`` / ``ntrue`` the
     prefix-difference sum / true-row count of an integer sum or any/all,
     ``words`` the rank words of a min/max column (encoded here if None).
-    Float sums are a scatter-add per group: each group accumulates on its
-    own, at ULP(group sum), where a difference of running sums would carry
-    the rounding of the whole prefix before the group. Untouched segments
+    Float sums are a segmented sum per group (:func:`_segsum`): each group
+    accumulates on its own, at ULP(group sum), where a difference of
+    running sums would carry the rounding of the whole prefix before the
+    group. Untouched segments
     (the tail) hold the reference's values."""
     if agg == "count":
         return group_n

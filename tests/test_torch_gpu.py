@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import radix_sort_tpu_torch as rst
-from radix_sort_tpu_torch.ops import expand, extract, merge_runs, run_ends
+from radix_sort_tpu_torch.ops import expand, extract, merge_runs, run_ends, segment_sum
 from radix_sort_tpu_torch.ops import query as rq
 from radix_sort_tpu_torch.utils import timing
 
@@ -386,6 +386,176 @@ def test_distributed_sort_merges_once_a_slot(cuda, monkeypatch):
     assert torch.equal(got[2].cpu(), want[2])
 
 
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+SS_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
+
+
+def _ss_on_card(x, gid):
+    """SS and the plain version on the same card inputs; one launch."""
+    before = segment_sum.LAUNCHES
+    got = segment_sum.segment_sum_sorted(x, gid)
+    assert segment_sum.LAUNCHES == before + 1
+    ref = segment_sum.segment_sum_sorted_plain(x, gid)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _ss_grid(n, dtype, seed):
+    """n values on a grid of the dtype whose float64 sums are exact in any
+    order at up to 2**27 rows: k * 2**-8, |k| < 2**p, p the dtype's
+    significand bits (at most 24)."""
+    p = {torch.float16: 11, torch.bfloat16: 8}.get(dtype, 24)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randint(-(2**p) + 1, 2**p, (n,), generator=g, device="cuda")
+    return (k.double() * 2.0**-8).to(dtype)
+
+
+def _ss_gid(n, starts):
+    """Group ids of n rows with groups starting at the given rows (0 first)."""
+    first = torch.zeros(n, dtype=torch.bool, device="cuda")
+    first[torch.tensor(sorted({0, *starts}), device="cuda")] = True
+    return torch.cumsum(first, 0) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", SS_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", ["q1", "q4"])
+def test_segment_sum_kernel_at_the_cells_shapes(cuda, dtype, shape):
+    """TPC-H Q1's shape (59,986,052 rows into 4 groups) and h2o q4's (1e8
+    rows into 100): on grid values every float64 sum is exact, so SS equals
+    the plain version bit for bit, rows past the groups +0.0; a second call
+    gives the same bits."""
+    n, groups = {"q1": (59_986_052, 4), "q4": (100_000_000, 100)}[shape]
+    x = _ss_grid(n, dtype, seed=groups)
+    g = torch.Generator(device="cuda").manual_seed(groups + 1)
+    gid = torch.sort(torch.randint(0, groups, (n,), generator=g, device="cuda")).values
+    got, ref = _ss_on_card(x, gid)
+    assert torch.equal(got.view(_BITS[x.element_size()]), ref.view(_BITS[x.element_size()]))
+    assert not bool(got[groups:].view(_BITS[x.element_size()]).any())
+    again = segment_sum.segment_sum_sorted(x, gid)
+    assert torch.equal(again.view(_BITS[x.element_size()]), got.view(_BITS[x.element_size()]))
+
+
+T = segment_sum.TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", SS_DTYPES, ids=str)
+@pytest.mark.parametrize("layout", ["tile_edges", "one_group", "ends_alone", "own_groups",
+                                    "runs", "unaligned"])
+def test_segment_sum_kernel_layouts(cuda, dtype, layout):
+    """Groups that begin or end on a tile's edge or one row off it, one group
+    over every tile (alone, or with a row of its own at each end), every row
+    its own group, runs of a few rows, and inputs off their 16-byte
+    alignment (the kernel's scalar loads): bit for bit on grid values."""
+    n = 9 * T + 77
+    if layout == "tile_edges":
+        gid = _ss_gid(n, [T - 1, T, 2 * T, 2 * T + 1, 3 * T - 1, 5 * T, 5 * T + 3, 8 * T + 76])
+    elif layout == "one_group":
+        gid = torch.zeros(n, dtype=torch.int64, device="cuda")
+    elif layout == "ends_alone":
+        gid = _ss_gid(n, [1, n - 1])
+    elif layout == "own_groups":
+        gid = torch.arange(n, device="cuda")
+    elif layout == "runs":
+        g = torch.Generator(device="cuda").manual_seed(5)
+        first = torch.rand(n, generator=g, device="cuda") < 0.2
+        first[0] = True
+        gid = torch.cumsum(first, 0) - 1
+    else:
+        gid = _ss_gid(n + 1, [3, 2 * T + 5])[1:]
+    x = _ss_grid(n + 1, dtype, seed=n)
+    x = x[1:] if layout == "unaligned" else x[:n]
+    assert layout != "unaligned" or x.data_ptr() % 16
+    got, ref = _ss_on_card(x, gid)
+    assert torch.equal(got.view(_BITS[x.element_size()]), ref.view(_BITS[x.element_size()]))
+    again = segment_sum.segment_sum_sorted(x, gid)
+    assert torch.equal(again.view(_BITS[x.element_size()]), got.view(_BITS[x.element_size()]))
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_rounding(cuda):
+    """Values with every bit of their significand: float64 sums within 2 ULP
+    of their group's sum of |x| of the exact sum (``math.fsum``; the plain
+    version's atomics carry their own error, up to (n_g - 1) u sum|x|); the
+    narrower types equal the plain version but at a rounding tie: the two
+    one ULP apart, their midpoint within the two float64 sums' error (and
+    float32's half ULP, through which the 16-bit types round) of the
+    plain version's float64 sum."""
+    import math
+
+    n = 2_000_003
+    g = torch.Generator(device="cuda").manual_seed(9)
+    first = torch.rand(n, generator=g, device="cuda") < 1 / 300
+    first[0] = True
+    gid = torch.cumsum(first, 0) - 1
+    x64 = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    got, _ = _ss_on_card(x64, gid)
+    groups = int(gid[-1]) + 1
+    xs, gs = x64.cpu().numpy(), gid.cpu().numpy()
+    cuts = np.searchsorted(gs, np.arange(groups + 1))
+    exact = np.array([math.fsum(xs[a:b]) for a, b in zip(cuts[:-1], cuts[1:])])
+    absum = np.add.reduceat(np.abs(xs), cuts[:-1])
+    ulp = np.spacing(absum)
+    assert (np.abs(got[:groups].cpu().numpy() - exact) <= 2 * ulp).all()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = x64.to(dtype)
+        got, ref = _ss_on_card(x, gid)
+        zeros = torch.zeros(n, dtype=torch.float64, device="cuda")
+        s64 = zeros.index_add_(0, gid, x.double())
+        absum = torch.zeros_like(zeros).index_add_(0, gid, x.double().abs())
+        rows = torch.bincount(gid, minlength=n).double()
+        off = got.view(_BITS[x.element_size()]) != ref.view(_BITS[x.element_size()])
+        if bool(off.any()):
+            bits = (got[off].view(_BITS[x.element_size()]).long()
+                    - ref[off].view(_BITS[x.element_size()]).long())
+            assert bool((bits.abs() == 1).all()), dtype
+            mid = (got[off].double() + ref[off].double()) / 2
+            tol = 2 * rows[off] * 2.0**-53 * absum[off] + 2.0**-24 * s64[off].abs()
+            assert bool(((mid - s64[off]).abs() <= tol).all()), dtype
+
+
+@pytest.mark.cuda
+def test_aggregates_on_card_take_the_kernel(cuda, monkeypatch):
+    """hash_aggregate's float sums, means and variances on the card launch
+    SS and never reach index_add_; each reads the CPU's value (float32 sums
+    rounded once from float64 on both)."""
+    def never(*args, **kw):
+        raise AssertionError("the CUDA path reached index_add_")
+
+    rng = np.random.default_rng(22)
+    n = 300_000
+    keys = torch.from_numpy(rng.integers(0, 5, n).astype(np.int32))
+    x = torch.from_numpy(np.round(rng.random(n) * 1000, 2).astype(np.float32))
+    aggs = ["sum", "mean", "var", "std"]
+    cpu = rst.hash_aggregate(keys, [x] * 4, aggs)
+    monkeypatch.setattr(torch.Tensor, "index_add_", never)
+    before = segment_sum.LAUNCHES
+    gpu = rst.hash_aggregate(keys.cuda(), [x.cuda()] * 4, aggs)
+    assert segment_sum.LAUNCHES - before == 6  # sum, mean, and two each for var and std
+    _same((gpu[0], gpu[2]), (cpu[0], cpu[2]), "keys")
+    _same(gpu[1][0], cpu[1][0], "sum")
+    for agg, g, c in zip(aggs[1:], gpu[1][1:], cpu[1][1:]):
+        _close(g, c, 1e-6 * float(c.abs().max()), agg)
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(8, device="cuda")
+    gid = torch.zeros(8, dtype=torch.int64, device="cuda")
+    for bad, what in (((x.int(), gid, x.int()), "float16"),
+                      ((x, gid.int(), x), "int64"),
+                      ((x, gid, x.double()), "out must be"),
+                      ((x[::2], gid[::2], x[:4]), "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            segment_sum.launch(*bad)
+    err = segment_sum._kernel()(x.data_ptr() + 2, 2, gid.data_ptr(), 7, x.data_ptr(),
+                                gid.data_ptr(), gid.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_time_ms(cuda):
     x = torch.randn(1 << 20, device="cuda")
@@ -466,8 +636,9 @@ def test_hash_aggregate_on_card_matches_cpu(cuda, keys_kind):
 
 @pytest.mark.cuda
 def test_float_sums_and_levels_on_card(cuda):
-    """Float sums (a scatter-add per group, in another order on the card)
-    within (n_g - 1) * u * sum|x| of the CPU's; ROLLUP levels (2, 1, 0)."""
+    """Float sums (SS on the card, the plain version's float64 scatter-add
+    on the CPU: another order) within (n_g - 1) * u * sum|x| of the CPU's;
+    ROLLUP levels (2, 1, 0)."""
     rng = np.random.default_rng(4)
     n = 40_000
     keys = [torch.from_numpy(rng.integers(0, 3, n).astype(np.uint8)),
